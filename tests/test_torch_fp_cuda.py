@@ -1,0 +1,190 @@
+"""trico_tpu_torch.codec.fp_cuda: each kernel's plain PyTorch version held
+against the Pallas kernel it replaces, run in interpret mode on the CPU, and
+the NumPy oracle. Tolerance: every word equal.
+
+The CUDA kernels themselves run only on a card; ``chip_smoke.py`` holds each
+against these plain versions there.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from trico_tpu.codec import fp_pallas, fp_ref
+from trico_tpu_torch import _u32
+from trico_tpu_torch.codec import fp_cuda, fp_torch
+
+from torch_cases import recording, words
+
+EXPS = [(4, 6), (4, 10), (0, 6), (0, 0), (6, 0), (10, 10), (5, 7)]
+
+
+def _np(t):
+    return _u32.to_numpy(t)
+
+
+@pytest.mark.parametrize("e1,e2", EXPS)
+def test_predict_xors_matches_pallas(e1, e2):
+    """L=256 runs _predict_window_kernel (K=4) when both exponents are
+    nonzero and _predict_kernel otherwise."""
+    x = words(5, 256, seed=e1 * 31 + e2)
+    got = fp_cuda.predict_xors(_u32.from_numpy(x), e1, e2)
+    want = fp_pallas.predict_xors_pallas(jnp.asarray(x), e1, e2, True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("e1,e2", [(4, 6), (4, 10)])
+def test_predict_xors_matches_pallas_one_step_kernel(e1, e2):
+    """L=252 is no multiple of the window K=4: _predict_kernel runs."""
+    x = words(5, 252, seed=9)
+    got = fp_cuda.predict_xors(_u32.from_numpy(x), e1, e2)
+    want = fp_pallas.predict_xors_pallas(jnp.asarray(x), e1, e2, True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("e1,e2", [(4, 6), (0, 0), (10, 10)])
+def test_predict_xors_matches_oracle(e1, e2):
+    x = words(5, 1024, seed=3)
+    xor1, xor2 = fp_cuda.predict_xors(_u32.from_numpy(x), e1, e2)
+    for c in range(len(x)):
+        p1, p2 = fp_ref.predictions(x[c], *fp_cuda._norm_exponents(e1, e2))
+        np.testing.assert_array_equal(_np(xor1)[c], x[c] ^ p1)
+        np.testing.assert_array_equal(_np(xor2)[c], x[c] ^ p2)
+
+
+def test_prev_occurrence_matches_oracle():
+    r = np.random.default_rng(0)
+    keys = r.integers(0, 7, (3, 500))
+    vals = r.integers(0, 1 << 32, (3, 500), dtype=np.uint64).astype(np.int64)
+    got = fp_cuda._prev_occurrence(torch.from_numpy(keys), torch.from_numpy(vals))
+    for c in range(3):
+        want = fp_ref.prev_occurrence(keys[c].astype(np.uint32),
+                                      vals[c].astype(np.uint32))
+        np.testing.assert_array_equal(got[c].numpy().astype(np.uint32), want)
+
+
+@pytest.mark.parametrize("e1,e2", EXPS)
+def test_replay_matches_pallas(e1, e2):
+    x = words(5, 256, seed=e2)
+    bc, res = fp_torch.predict_f32_chunks(_u32.from_numpy(x), e1, e2)
+    got = fp_cuda.replay(bc, res, e1, e2)
+    want = fp_pallas.replay_pallas(jnp.asarray(bc.numpy()),
+                                   jnp.asarray(_np(res)), e1, e2, True)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    np.testing.assert_array_equal(_np(got), x)
+
+
+def _parse_calls(seed, L):
+    """The logshift calls of one parse of random payload bytes."""
+    r = np.random.default_rng(seed)
+    B = fp_torch.f32_max_chunk_bytes(L)
+    p = torch.from_numpy(r.integers(0, 256, (4, B), dtype=np.uint8))
+    with recording(fp_cuda, "logshift") as calls:
+        fp_torch.parse_f32_chunks_v2(p, L)
+    return calls
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("which", [0, 1], ids=["left_slot_ids", "right_bytes"])
+def test_logshift_matches_pallas_on_parse_words(seed, which):
+    word, pb, direction = _parse_calls(seed, 256)[which]
+    assert direction == ("left" if which == 0 else "right")
+    got = fp_cuda.logshift(word, pb, direction)
+    want = fp_pallas.logshift_pallas(jnp.asarray(_np(word)), pb, direction, True)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def _monotone_words(seed, C=4, S=1024, pb=8):
+    """Random monotone movements: live lanes to strictly increasing
+    destinations with nondecreasing shifts (left), and their inverses
+    (right)."""
+    r = np.random.default_rng(seed)
+    live = r.random((C, S)) < 0.6
+    rank = np.cumsum(live, axis=1) - live
+    dead = np.arange(S)[None, :] - rank
+    dest = rank + np.floor(r.random((C, 1)) * dead).astype(np.int64)
+    payload = r.integers(1, 1 << pb, (C, S))
+    left = np.where(live, ((np.arange(S) - dest) << pb) | payload, 0)
+    right = np.zeros((C, S), np.int64)
+    rows, cols = np.nonzero(live)
+    src = dest[rows, cols]
+    right[rows, src] = ((cols - src) << pb) | payload[rows, cols]
+    return left.astype(np.uint32), right.astype(np.uint32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("direction", ["left", "right"])
+def test_logshift_matches_pallas_on_random_monotone_words(seed, direction):
+    left, right = _monotone_words(seed)
+    w = left if direction == "left" else right
+    got = fp_cuda.logshift(_u32.from_numpy(w), 8, direction)
+    want = fp_pallas.logshift_pallas(jnp.asarray(w), 8, direction, True)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def _pack_calls(seed, L):
+    """The pair_compact_or calls of one pack of random (bcode, res)."""
+    r = np.random.default_rng(seed)
+    bc = torch.from_numpy(r.integers(0, 8, (4, L), dtype=np.uint8))
+    bc[1] = 0
+    bc[2] = 4
+    res = _u32.from_numpy(r.integers(0, 1 << 32, (4, L), dtype=np.uint64)
+                          .astype(np.uint32))
+    with recording(fp_cuda, "pair_compact_or") as calls:
+        fp_torch.pack_f32_chunks_v2(bc, res)
+    return calls
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("which", [0, 1], ids=["c0", "c1"])
+def test_pair_compact_or_matches_pallas(seed, which):
+    carrier, payload, nbits = _pack_calls(seed, 256)[which]
+    got = fp_cuda.pair_compact_or(carrier, payload, nbits)
+    want = fp_pallas.pair_compact_or_pallas(
+        jnp.asarray(_np(carrier)), jnp.asarray(_np(payload)), nbits, True)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def test_wrappers_on_cpu_run_plain_versions_and_count_nothing():
+    fp_cuda.reset_launches()
+    x = _u32.from_numpy(words(3, 64))
+    xor1, xor2 = fp_cuda.predict_xors(x, 4, 6)
+    ref1, ref2 = fp_cuda.predict_xors_plain(x, 4, 6)
+    assert torch.equal(xor1, ref1) and torch.equal(xor2, ref2)
+    bc, res = fp_torch._bcode_res_from_xors(xor1, xor2)
+    assert torch.equal(fp_cuda.replay(bc, res, 4, 6), x)
+    assert fp_cuda.launches == dict.fromkeys(fp_cuda.KERNELS, 0)
+
+
+@pytest.mark.parametrize("name", fp_cuda.KERNELS)
+def test_wrappers_reject_devices_other_than_cpu_and_cuda(name):
+    m = torch.empty((2, 64), dtype=torch.int32, device="meta")
+    args = {"predict_xors": (m, 4, 6),
+            "replay": (torch.empty((2, 64), dtype=torch.uint8, device="meta"),
+                       m, 4, 6),
+            "logshift": (m, 8, "left"),
+            "pair_compact_or": (m, m, 6)}[name]
+    with pytest.raises(ValueError):
+        getattr(fp_cuda, name)(*args)
+
+
+def test_wrappers_reject_bad_inputs():
+    x = torch.zeros((2, 64), dtype=torch.int64)
+    with pytest.raises(ValueError):
+        fp_cuda.predict_xors(x, 4, 6)
+    with pytest.raises(ValueError):
+        fp_cuda.logshift(torch.zeros((2, 64), dtype=torch.int32), 8, "up")
+    with pytest.raises(ValueError):
+        fp_cuda.logshift(torch.zeros((2, 1 << 12), dtype=torch.int32), 21, "left")
+    with pytest.raises(ValueError):
+        fp_cuda.replay(torch.zeros((2, 8), dtype=torch.uint8),
+                       torch.zeros((2, 16), dtype=torch.int32), 4, 6)
+
+
+def test_norm_exponents_match_reference():
+    for e1 in range(0, 34):
+        for e2 in (0, 1, 6, 7, 29, 30, 31, 33):
+            assert fp_cuda._norm_exponents(e1, e2) == fp_pallas._norm_exponents(e1, e2)

@@ -1,0 +1,56 @@
+"""Inputs and helpers shared by the tests of trico_tpu_torch (test_torch_*)."""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+
+from conftest import mesh_like_floats
+
+SPECIAL = np.array([0x7FC00000, 0xFFC00000, 0x7F800000, 0xFF800000,
+                    0x7F800001, 0x00000000, 0x80000000, 0x3F800000,
+                    0xFFFFFFFF, 0x00000001], np.uint32)
+
+
+def words(C: int, L: int, seed: int = 0) -> np.ndarray:
+    """(C, L) uint32 rows cycling through mesh-like floats, zeros, a
+    constant, random bits with NaN/inf patterns mixed in, and alternating
+    signs."""
+    r = np.random.default_rng(seed)
+    out = np.empty((C, L), np.uint32)
+    for c in range(C):
+        kind = c % 5
+        if kind == 0:
+            out[c] = mesh_like_floats(L, seed=seed + c).view(np.uint32)
+        elif kind == 1:
+            out[c] = 0
+        elif kind == 2:
+            out[c] = np.float32(1.5).view(np.uint32)
+        elif kind == 3:
+            row = r.integers(0, 1 << 32, L, dtype=np.uint64).astype(np.uint32)
+            hit = r.random(L) < 0.3
+            row[hit] = SPECIAL[r.integers(0, len(SPECIAL), hit.sum())]
+            out[c] = row
+        else:
+            f = mesh_like_floats(L, seed=seed + c)
+            out[c] = (f * np.where(np.arange(L) % 2, -1, 1)).astype(
+                np.float32).view(np.uint32)
+    return out
+
+
+@contextlib.contextmanager
+def recording(module, name: str):
+    """Record the arguments of every call to ``module.name`` in a list."""
+    calls = []
+    real = getattr(module, name)
+
+    def call(*args):
+        calls.append(args)
+        return real(*args)
+
+    setattr(module, name, call)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)

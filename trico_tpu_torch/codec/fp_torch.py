@@ -1,0 +1,309 @@
+"""The f32 chunk-parallel FCM/DFCM codec in the v2 "tpu" layout, in PyTorch.
+
+Counterpart of the v2 slice of ``trico_tpu/codec/fp_jax.py``; the names
+match. A chunk of L values is one independent reference FP substream with its
+group tags hoisted to the front:
+
+    [u8 hash_info][u32 BE count][3*L/8 tag bytes][residual bytes]
+
+zero-padded to ``f32_max_chunk_bytes(L)``. Encode is predict (``predict_xors``
+kernel), code choice, then the pack: tags, then the residual region through
+:mod:`.pack_funnel`. Decode is the parse (two ``logshift`` kernel passes),
+then the replay (``replay`` kernel). Device tensors carry u32 words as int32
+bits (:mod:`trico_tpu_torch._u32`); the host functions at the end take and
+return NumPy arrays, like their JAX counterparts.
+
+The TPU workarounds of the JAX module are not carried over: row blocking
+against an XLA:TPU miscompile (``_map_row_blocks``), bucketing rows to powers
+of two (``_pad_rows``), the two-level cumsum and one-hot table reads. Bytes
+are identical without them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _u32
+from . import fp_cuda
+from .fp_cuda import _norm_exponents
+from .pack_funnel import region_bytes_f32
+
+F32_TPU_CANDIDATES_FAST = ((0, 6), (4, 6))
+
+
+def hash_info(e1: int, e2: int) -> int:
+    """The substream's first byte for normalised exponents (fps.c:120-121)."""
+    return ((e1 >> 1) << 4) | (e2 >> 1)
+
+
+def exponents(info: int) -> tuple[int, int]:
+    """Inverse of :func:`hash_info`."""
+    return (info >> 4) << 1, (info & 15) << 1
+
+
+def f32_max_chunk_bytes(L: int) -> int:
+    if L % 8:
+        raise ValueError(f"chunk length must be a multiple of 8, got {L}")
+    return 5 + 3 * (L // 8) + 4 * L
+
+
+# ---------------------------------------------------------------------------
+# encode
+# ---------------------------------------------------------------------------
+
+
+def _bcode_res_from_xors(xor1, xor2):
+    """Per value: bcode 0..4 = FCM residual in that many bytes, 5..7 = DFCM
+    residual in 1..3 bytes (DFCM iff strictly shorter); residual word."""
+    def nbytes(x):
+        return torch.where((x & -256) == 0, 1,
+                           torch.where((x & -65536) == 0, 2,
+                                       torch.where((x & -(1 << 24)) == 0, 3, 4)))
+
+    nb1 = torch.where(xor1 == 0, 0, nbytes(xor1))
+    nb2 = nbytes(xor2)
+    use_dfcm = (nb1 >= 2) & (nb2 < nb1)
+    bcode = torch.where(use_dfcm, 4 + nb2, nb1)
+    res = torch.where(use_dfcm, xor2, xor1)
+    return bcode.to(torch.uint8), res
+
+
+def _glen32(bc):
+    """Residual byte length of a 3-bit bcode: [0,1,2,3,4,1,2,3][bc]."""
+    bc = bc.to(torch.int32)
+    return torch.where(bc >= 5, bc - 4, bc)
+
+
+def predict_f32_chunks(values, e1: int = 4, e2: int = 10):
+    """(C, L) int32 words → (bcode (C, L) uint8, res (C, L) int32)."""
+    return _bcode_res_from_xors(*fp_cuda.predict_xors(values, e1, e2))
+
+
+def pack_f32_chunks_v2(bcode, res, e1: int = 4, e2: int = 10):
+    """(C, L) (bcode, res) → ((C, B) uint8 v2 payloads, (C,) int32 sizes)."""
+    e1, e2 = _norm_exponents(e1, e2)
+    C, L = bcode.shape
+    G = L // 8
+    B = f32_max_chunk_bytes(L)
+    dev = bcode.device
+    bc = bcode.to(torch.int32)
+    length = _glen32(bc)
+    total = 5 + 3 * G + length.sum(dim=1, dtype=torch.int32)
+
+    hdr = torch.tensor([hash_info(e1, e2), (L >> 24) & 0xFF, (L >> 16) & 0xFF,
+                        (L >> 8) & 0xFF, L & 0xFF], dtype=torch.uint8, device=dev)
+    # tag: eight 3-bit codes, slot 0 in the low bits, stored big-endian
+    shifts = 3 * torch.arange(8, dtype=torch.int32, device=dev)
+    tag24 = (bc.reshape(C, G, 8) << shifts).sum(dim=2, dtype=torch.int32)
+    tags = torch.stack([(tag24 >> 16) & 0xFF, (tag24 >> 8) & 0xFF, tag24 & 0xFF],
+                       dim=2).reshape(C, 3 * G).to(torch.uint8)
+    region, _ = region_bytes_f32(length, res)
+    out = torch.cat([hdr.expand(C, 5), tags, region], dim=1)
+    assert out.shape == (C, B)
+    return out, total
+
+
+def encode_f32_chunks_v2(values, e1: int = 4, e2: int = 10):
+    """(C, L) int32 words → ((C, B) uint8 v2 payloads, (C,) int32 sizes)."""
+    bcode, res = predict_f32_chunks(values, e1, e2)
+    return pack_f32_chunks_v2(bcode, res, e1, e2)
+
+
+def encode_f32_chunks_v2_adaptive(values, candidates=F32_TPU_CANDIDATES_FAST):
+    """Per-chunk choice of exponents among ``candidates``, smallest payload
+    wins (the first candidate on ties), each chunk stamped with its own
+    hash_info byte.
+
+    Only ``F32_TPU_CANDIDATES_FAST`` = ((0,6),(4,6)) is ported: one (4,6)
+    predict gives the shared DFCM xor and the e1=4 FCM xor, and the e1=0 FCM
+    xor is ``v ^ vprev`` (fp_jax.py:843-866)."""
+    norm = [_norm_exponents(e1, e2) for (e1, e2) in candidates]
+    if norm != [(0, 6), (4, 6)]:
+        raise NotImplementedError(
+            f"adaptive candidates {tuple(candidates)}: only "
+            f"{F32_TPU_CANDIDATES_FAST} is ported; the full set "
+            "F32_TPU_CANDIDATES (FCM multi-exponent kernel, sort predictor) "
+            "is ROADMAP queue 1 item 4")
+    C, L = values.shape
+    G = L // 8
+    xor1_4, xor2 = fp_cuda.predict_xors(values, 4, 6)
+    vprev = torch.zeros_like(values)
+    vprev[:, 1:] = values[:, :-1]
+    bcs, ress, sizes = [], [], []
+    for xor1 in (values ^ vprev, xor1_4):
+        bc, res = _bcode_res_from_xors(xor1, xor2)
+        bcs.append(bc)
+        ress.append(res)
+        sizes.append(5 + 3 * G + _glen32(bc).sum(dim=1, dtype=torch.int32))
+    choice = torch.argmin(torch.stack(sizes), dim=0)  # first minimum wins
+    pick = (choice == 1)[:, None]
+    bc = torch.where(pick, bcs[1], bcs[0])
+    res = torch.where(pick, ress[1], ress[0])
+    payloads, total = pack_f32_chunks_v2(bc, res, *norm[0])
+    infos = torch.tensor([hash_info(*e) for e in norm], dtype=torch.uint8,
+                         device=values.device)
+    payloads[:, 0] = infos[choice]
+    return payloads, total
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def _move_monotone(payload, shift, valid, pb, direction):
+    S = payload.shape[1]
+    if pb + max(S - 1, 1).bit_length() > 32:
+        raise ValueError("log-shift word overflow")
+    word = torch.where(valid, _u32.shl(shift, pb) | payload, 0).to(torch.int32)
+    return fp_cuda.logshift(word, pb, direction)
+
+
+def _compact_monotone(payload, shift, valid, pb):
+    """Move the live element at lane p left by shift[p] (monotone); (C, S)."""
+    return _move_monotone(payload, shift, valid, pb, "left")
+
+
+def _expand_monotone(payload, shift, valid, pb):
+    """Move the live element at lane p right by shift[p] (monotone); (C, S)."""
+    return _move_monotone(payload, shift, valid, pb, "right")
+
+
+def parse_f32_chunks_v2(payloads, L: int, e1: int = 4, e2: int = 10):
+    """(C, B) uint8 v2 payloads → ((C, L) uint8 bcodes, (C, L) int32 xors).
+
+    Tags sit at fixed offsets. The residual bytes move in two monotone
+    passes: the slot ids are compacted to rank order (the inverse of the
+    pack), then the region bytes are expanded to their slots."""
+    C, B = payloads.shape
+    if L % 8:
+        raise ValueError(f"chunk length must be a multiple of 8, got {L}")
+    G = L // 8
+    S = 4 * L  # residual byte slots, 4 per value
+    dev = payloads.device
+    tags = payloads[:, 5 : 5 + 3 * G].to(torch.int32).reshape(C, G, 3)
+    tag24 = (tags[:, :, 0] << 16) | (tags[:, :, 1] << 8) | tags[:, :, 2]
+    shifts = 3 * torch.arange(8, dtype=torch.int32, device=dev)
+    bcodes = ((tag24[:, :, None] >> shifts) & 7).reshape(C, L)
+    lens = _glen32(bcodes)
+    cum = torch.cumsum(lens, dim=1, dtype=torch.int32)
+    res_before = cum - lens
+    n_res = cum[:, -1]
+
+    k = torch.arange(4, dtype=torch.int32, device=dev)[None, None, :]
+    valid = (k < lens[:, :, None]).reshape(C, S)
+    sbits = max(S - 1, 1).bit_length()  # payload bits of a slot id
+    i = torch.arange(L, dtype=torch.int32, device=dev)[None, :, None]
+    move = (4 * i - res_before[:, :, None]).expand(C, L, 4).reshape(C, S)
+    slot_id = torch.arange(S, dtype=torch.int32, device=dev).expand(C, S)
+    slot_by_rank = _compact_monotone(slot_id, move, valid, sbits)
+
+    region = payloads[:, 5 + 3 * G : 5 + 3 * G + S].to(torch.int32)
+    ranks = torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+    bytes_by_slot = _expand_monotone(region, slot_by_rank - ranks,
+                                     ranks < n_res[:, None], 8).reshape(C, L, 4)
+
+    shift = 8 * (lens[:, :, None] - 1 - k).clamp(0, 3)
+    part = torch.where(valid.reshape(C, L, 4),
+                       _u32.shl(bytes_by_slot, shift), 0)
+    xors = part[..., 0] | part[..., 1] | part[..., 2] | part[..., 3]
+    return bcodes.to(torch.uint8), xors
+
+
+def replay_f32_chunks(bcodes, xors, e1: int = 4, e2: int = 10):
+    """Replay the predictors over parsed (C, L) (bcode, xor) → int32 values."""
+    return fp_cuda.replay(bcodes, xors, e1, e2)
+
+
+def decode_f32_chunks_v2(payloads, L: int, e1: int = 4, e2: int = 10):
+    """(C, B) uint8 v2 payloads → (C, L) int32 words: parse, then replay."""
+    bcodes, xors = parse_f32_chunks_v2(payloads, L, e1, e2)
+    return replay_f32_chunks(bcodes, xors, e1, e2)
+
+
+def relayout_f32_v2_to_v1(payload: np.ndarray) -> np.ndarray:
+    """Host reorder of one v2-layout substream to the reference layout
+    (NumPy; the same function as ``fp_jax.relayout_f32_v2_to_v1``)."""
+    p = np.asarray(payload, np.uint8)
+    n = int.from_bytes(p[1:5].tobytes(), "big")
+    G = (n + 7) // 8
+    tags = p[5 : 5 + 3 * G]
+    res = p[5 + 3 * G :]
+    tag24 = ((tags[0::3].astype(np.int64) << 16)
+             | (tags[1::3].astype(np.int64) << 8)
+             | tags[2::3].astype(np.int64))
+    lens_tab = np.array([0, 1, 2, 3, 4, 1, 2, 3], np.int64)
+    glen = np.zeros(G, np.int64)
+    for j in range(8):
+        glen += lens_tab[(tag24 >> (3 * j)) & 7]
+    ends = np.cumsum(glen)
+    starts = ends - glen
+    pieces = [p[:5]]
+    for g in range(G):
+        pieces.append(tags[3 * g : 3 * g + 3])
+        pieces.append(res[starts[g] : ends[g]])
+    return np.concatenate(pieces)
+
+
+# ---------------------------------------------------------------------------
+# host entry points: NumPy in, NumPy out
+# ---------------------------------------------------------------------------
+
+
+def _ref_layout_unported():
+    return NotImplementedError(
+        'layout="ref" (device pack and parse of the reference layout) is '
+        "ROADMAP queue 1 item 8; this port encodes and decodes v2 chunks")
+
+
+def _split(values_u32: np.ndarray, chunk_len: int):
+    n = len(values_u32)
+    C = n // chunk_len
+    return C, values_u32[: C * chunk_len].reshape(C, chunk_len), \
+        values_u32[C * chunk_len:]
+
+
+def encode_f32(values_u32: np.ndarray, chunk_len: int, e1: int = 4,
+               e2: int = 10, layout: str = "tpu", *, device):
+    """Encode a flat uint32 stream in chunks of ``chunk_len`` on ``device``.
+
+    Returns (payloads (C, B) uint8, sizes (C,) int64, tail_values); the tail
+    (n % chunk_len values) is left for the caller's host codec."""
+    if layout != "tpu":
+        raise _ref_layout_unported()
+    C, chunks, tail = _split(values_u32, chunk_len)
+    B = f32_max_chunk_bytes(chunk_len)
+    if C == 0:
+        return np.zeros((0, B), np.uint8), np.zeros(0, np.int64), tail
+    x = _u32.from_numpy(chunks).to(device)
+    out, sizes = encode_f32_chunks_v2(x, e1, e2)
+    return out.cpu().numpy(), sizes.cpu().numpy().astype(np.int64), tail
+
+
+def encode_f32_adaptive(values_u32: np.ndarray, chunk_len: int,
+                        candidates=F32_TPU_CANDIDATES_FAST,
+                        layout: str = "tpu", *, device):
+    """Adaptive per-chunk exponent encode of a flat uint32 stream; see
+    :func:`encode_f32_chunks_v2_adaptive`. Returns as :func:`encode_f32`."""
+    if layout != "tpu":
+        raise _ref_layout_unported()
+    chunk_len = (chunk_len // 8) * 8 or 8
+    C, chunks, tail = _split(values_u32, chunk_len)
+    B = f32_max_chunk_bytes(chunk_len)
+    if C == 0:
+        return np.zeros((0, B), np.uint8), np.zeros(0, np.int64), tail
+    x = _u32.from_numpy(chunks).to(device)
+    out, sizes = encode_f32_chunks_v2_adaptive(x, tuple(candidates))
+    return out.cpu().numpy(), sizes.cpu().numpy().astype(np.int64), tail
+
+
+def decode_f32(payloads: np.ndarray, chunk_len: int, e1: int = 4,
+               e2: int = 10, layout: str = "tpu", *, device) -> np.ndarray:
+    """Decode (C, B) padded v2 chunk payloads → flat uint32 values."""
+    if layout != "tpu":
+        raise _ref_layout_unported()
+    if len(payloads) == 0:
+        return np.zeros(0, np.uint32)
+    p = torch.from_numpy(np.ascontiguousarray(payloads, np.uint8)).to(device)
+    return _u32.to_numpy(decode_f32_chunks_v2(p, chunk_len, e1, e2)).reshape(-1)
