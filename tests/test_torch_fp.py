@@ -151,13 +151,6 @@ def test_adaptive_fast_matches_jax(L):
                                        fp_torch.hash_info(4, 6)}
 
 
-@pytest.mark.parametrize("cands", [fp_jax.F32_TPU_CANDIDATES, ((4, 6),),
-                                   ((4, 6), (0, 6))])
-def test_adaptive_other_candidate_sets_raise(cands):
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        fp_torch.encode_f32_chunks_v2_adaptive(_t(words(2, 64)), cands)
-
-
 @pytest.mark.parametrize("L,n", [(1024, 3 * 1024 + 77), (4096, 2 * 4096 + 5)])
 def test_host_entry_points_match_jax(L, n):
     """encode_f32 / decode_f32 (layout "tpu") with a ragged tail."""
@@ -173,10 +166,10 @@ def test_host_entry_points_match_jax(L, n):
 
 
 def test_host_adaptive_entry_matches_jax():
+    """Both defaults: the full candidate set."""
     vals = words(5, 4 * 1024 + 33, seed=2).reshape(-1)[: 4 * 1024 + 33 + 2048].copy()
     got, sizes, tail = fp_torch.encode_f32_adaptive(vals, 1024, device="cpu")
-    want, want_sizes, want_tail = fp_jax.encode_f32_adaptive(
-        vals, 1024, fp_jax.F32_TPU_CANDIDATES_FAST)
+    want, want_sizes, want_tail = fp_jax.encode_f32_adaptive(vals, 1024)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(sizes, want_sizes)
     np.testing.assert_array_equal(tail, want_tail)

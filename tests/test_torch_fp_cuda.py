@@ -162,11 +162,15 @@ def test_wrappers_on_cpu_run_plain_versions_and_count_nothing():
 @pytest.mark.parametrize("name", fp_cuda.KERNELS)
 def test_wrappers_reject_devices_other_than_cpu_and_cuda(name):
     m = torch.empty((2, 64), dtype=torch.int32, device="meta")
+    m64 = torch.empty((2, 64), dtype=torch.int64, device="meta")
+    bc = torch.empty((2, 64), dtype=torch.uint8, device="meta")
     args = {"predict_xors": (m, 4, 6),
-            "replay": (torch.empty((2, 64), dtype=torch.uint8, device="meta"),
-                       m, 4, 6),
+            "fcm_multi_xors": (m, (2, 6)),
+            "replay": (bc, m, 4, 6),
             "logshift": (m, 8, "left"),
-            "pair_compact_or": (m, m, 6)}[name]
+            "pair_compact_or": (m, m, 6),
+            "predict64_xors": (m64, 4, 6),
+            "replay64": (bc, m64, 4, 6)}[name]
     with pytest.raises(ValueError):
         getattr(fp_cuda, name)(*args)
 
@@ -182,6 +186,13 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         fp_cuda.replay(torch.zeros((2, 8), dtype=torch.uint8),
                        torch.zeros((2, 16), dtype=torch.int32), 4, 6)
+    with pytest.raises(ValueError):
+        fp_cuda.predict64_xors(torch.zeros((2, 64), dtype=torch.int32), 4, 6)
+    with pytest.raises(ValueError):
+        fp_cuda.replay64(torch.zeros((2, 16), dtype=torch.uint8),
+                         torch.zeros((2, 16), dtype=torch.int32), 4, 6)
+    with pytest.raises(ValueError):
+        fp_cuda.fcm_multi_xors(torch.zeros((2, 64), dtype=torch.int64), (4,))
 
 
 def test_norm_exponents_match_reference():

@@ -28,10 +28,17 @@ r = np.random.default_rng(0)
 t = np.linspace(0, 40 * np.pi, 3 * 1024 + 21)
 vals = (np.sin(t) + np.cumsum(r.normal(0, 1e-3, len(t)))).astype(np.float32)
 vals = vals.view(np.uint32)
-for opt in (False, "fast"):
+vals64 = (np.cumsum(r.normal(0, 1e-3, 2 * 1024 + 9)) - 3.5).view(np.uint64)
+for opt in (False, "fast", True):
     blob = tt.encode_chunked(vals, 1024, optimize=opt, device="cpu")
     back, bits = tt.decode_chunked(blob, device="cpu")
     assert bits == 32 and np.array_equal(back, vals), opt
+    # f64 at its (20,20) default and adaptively: big tables decode on host
+    blob = tt.encode_chunked(vals64, 1024, optimize=opt, device="cpu")
+    back, bits = tt.decode_chunked(blob, device="cpu")
+    assert bits == 64 and np.array_equal(back, vals64), opt
+blob = tt.encode_chunked(vals, 1024, 16, 16, device="cpu")  # sort predictor
+assert np.array_equal(tt.decode_chunked(blob, device="cpu")[0], vals)
 assert tt.chunked.F32_TPU_EXP == chunked.F32_TPU_EXP
 assert tt.chunked.DEFAULT_CHUNK_LEN == chunked.DEFAULT_CHUNK_LEN
 e1, e2 = tt.chunked.F32_TPU_EXP

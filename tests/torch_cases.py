@@ -39,6 +39,37 @@ def words(C: int, L: int, seed: int = 0) -> np.ndarray:
     return out
 
 
+SPECIAL64 = np.array([0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 5e-324,
+                      -1e-310, 2.2250738585072014e-308, 1.0, -1.5],
+                     np.float64).view(np.uint64)
+
+
+def words64(C: int, L: int, seed: int = 0) -> np.ndarray:
+    """(C, L) uint64 rows cycling through mesh-like doubles, zeros, a
+    constant, random bits with NaN/inf/signed-zero/subnormal patterns mixed
+    in, negative random walks, and float32 mesh values widened to double."""
+    r = np.random.default_rng(seed)
+    out = np.empty((C, L), np.uint64)
+    for c in range(C):
+        kind = c % 6
+        if kind == 0:
+            out[c] = mesh_like_floats(L, seed=seed + c, dtype=np.float64).view(np.uint64)
+        elif kind == 1:
+            out[c] = 0
+        elif kind == 2:
+            out[c] = np.float64(-2.75).view(np.uint64)
+        elif kind == 3:
+            row = np.frombuffer(r.bytes(8 * L), np.uint64).copy()
+            hit = r.random(L) < 0.3
+            row[hit] = SPECIAL64[r.integers(0, len(SPECIAL64), hit.sum())]
+            out[c] = row
+        elif kind == 4:
+            out[c] = (-np.abs(np.cumsum(r.normal(0, 1, L)))).view(np.uint64)
+        else:
+            out[c] = mesh_like_floats(L, seed=seed + c).astype(np.float64).view(np.uint64)
+    return out
+
+
 @contextlib.contextmanager
 def recording(module, name: str):
     """Record the arguments of every call to ``module.name`` in a list."""

@@ -1,37 +1,48 @@
-"""The f32 codec's device kernels: CUDA on the H100, plain PyTorch beside each.
+"""The FP codec's device kernels: CUDA on the H100, plain PyTorch beside each.
 
-Counterpart of ``trico_tpu/codec/fp_pallas.py``. Four wrappers cover the five
-Pallas kernels the f32 v2 main path reaches:
+Counterpart of ``trico_tpu/codec/fp_pallas.py``. Seven wrappers cover its
+nine Pallas kernels:
 
 ==================  ==========================================================
 wrapper             replaces (trico_tpu/codec/fp_pallas.py)
 ==================  ==========================================================
 predict_xors        _predict_window_kernel :85 and _predict_kernel :59
+fcm_multi_xors      _fcm_multi_kernel :150
 replay              _replay_kernel :216
 logshift            _logshift_kernel :275
 pair_compact_or     _pair_compact_kernel :323
+predict64_xors      _predict64_window_kernel :493 and _predict64_kernel :578
+replay64            _replay64_kernel :440
 ==================  ==========================================================
 
-The kernels are in ``csrc/fp_kernels.cu``. Each wrapper takes int32 tensors
-holding u32 words (see :mod:`trico_tpu_torch._u32`). For a tensor on the CPU
-it runs the plain version (``*_plain``), the same function in torch ops; for a
-CUDA tensor it launches the kernel and adds one to ``launches[name]``, or
-raises. No wrapper falls back from one to the other.
+The kernels are in ``csrc/fp_kernels.cu``. The f32 wrappers take int32
+tensors holding u32 words (:mod:`trico_tpu_torch._u32`), the f64 ones int64
+tensors holding u64 words (:mod:`trico_tpu_torch._u64`). For a tensor on the
+CPU a wrapper runs the plain version (``*_plain``), the same function in
+torch ops; for a CUDA tensor it launches the kernel and adds one to
+``launches[name]``, or raises. No wrapper falls back from one to the other.
+Whether a predictor's tables fit its kernel is :func:`tables_fit`, which the
+callers ask before they choose the kernel or the sort formulation.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from .. import _u32
 
-KERNELS = ("predict_xors", "replay", "logshift", "pair_compact_or")
+KERNELS = ("predict_xors", "fcm_multi_xors", "replay", "logshift",
+           "pair_compact_or", "predict64_xors", "replay64")
 
 # launches[name] counts the kernel launches of each wrapper.
 launches = dict.fromkeys(KERNELS, 0)
 
 # dynamic shared memory one H100 block can opt into (bytes)
 MAX_SMEM = 232448
+# exponents one fcm_multi_xors launch takes (kMaxFcm in fp_kernels.cu)
+MAX_FCM = 8
 
 
 def reset_launches() -> None:
@@ -42,6 +53,19 @@ def reset_launches() -> None:
 def _norm_exponents(e1: int, e2: int) -> tuple[int, int]:
     """Exponents as the format stores them: even, at most 30."""
     return min((e1 >> 1) << 1, 30), min((e2 >> 1) << 1, 30)
+
+
+def tables_fit(exps, word_bytes: int = 4) -> bool:
+    """True when hash tables of 2^e words of ``word_bytes`` each, one per
+    exponent in ``exps``, fit one block's shared memory: what a predictor or
+    replay kernel holds for one chunk."""
+    return sum(1 << e for e in exps) * word_bytes <= MAX_SMEM
+
+
+def _need_fit(name: str, exps, word_bytes: int) -> None:
+    if not tables_fit(exps, word_bytes):
+        raise ValueError(f"{name}: tables of exponents {tuple(exps)} exceed "
+                         "one block's shared memory")
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -76,13 +100,21 @@ def _lib():
     return _build.lib()
 
 
-def _table_bytes(e1: int, e2: int) -> int:
-    return ((1 << e1) + (1 << e2)) * 4
+# ---------------------------------------------------------------------------
+# plain formulations, shared by the f32 and f64 twins. Words are int64: a u32
+# word widened to 0..2^32-1, or a u64 word's bits; ``wrap`` masks a sum or
+# difference back to the word (& -1 keeps all 64 bits, which wrap by
+# themselves).
+# ---------------------------------------------------------------------------
 
 
-# ---------------------------------------------------------------------------
-# predict_xors
-# ---------------------------------------------------------------------------
+def _wrap(bits: int) -> int:
+    return _u32.MASK if bits == 32 else -1
+
+
+def _top(x: torch.Tensor, e: int, bits: int) -> torch.Tensor:
+    """Top e bits of words of ``bits`` bits; 0 when e == 0."""
+    return (x >> (bits - e)) & ((1 << e) - 1) if e else torch.zeros_like(x)
 
 
 def _shift_right(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -105,26 +137,81 @@ def _prev_occurrence(keys: torch.Tensor, payload: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(payload).scatter_(1, order, pred_s)
 
 
-def predict_xors_plain(values: torch.Tensor, e1: int, e2: int):
-    """(C, L) words → (FCM xor, DFCM xor), closed-form previous occurrence.
+def _predict_words(v: torch.Tensor, e1: int, e2: int, bits: int):
+    """(FCM xor, DFCM xor) of (C, L) words, closed-form previous occurrence.
 
     FCM key at i: top e1 bits of v[i-1]; DFCM key: t[i-1] ^ ((t[i-2] << e2/2)
-    & m2) with t the top e2 bits of the stride (fp_pallas.py:89-100); a zero
-    exponent keeps its key at 0."""
-    e1, e2 = _norm_exponents(e1, e2)
-    v = _u32.widen(values)
+    & m2) with t the top e2 bits of the stride (fp_pallas.py:89-100, :497-508);
+    a zero exponent keeps its key at 0."""
+    wrap = _wrap(bits)
     vprev = _shift_right(v, 1)
-    s = (v - vprev) & _u32.MASK
-    k1 = vprev >> (32 - e1) if e1 else torch.zeros_like(v)
-    if e2:
-        t = s >> (32 - e2)
-        k2 = _shift_right(t, 1) ^ ((_shift_right(t, 2) << (e2 // 2))
-                                   & ((1 << e2) - 1))
-    else:
-        k2 = torch.zeros_like(v)
+    s = (v - vprev) & wrap
+    k1 = _top(vprev, e1, bits)
+    t = _top(s, e2, bits)
+    k2 = _shift_right(t, 1) ^ ((_shift_right(t, 2) << (e2 // 2)) & ((1 << e2) - 1))
     pred1 = _prev_occurrence(k1, v)
     pred2 = _prev_occurrence(k2, s)
-    return _u32.narrow(v ^ pred1), _u32.narrow(v ^ (vprev + pred2))
+    return v ^ pred1, v ^ ((vprev + pred2) & wrap)
+
+
+def _replay_words(x: torch.Tensor, dfcm: torch.Tensor, e1: int, e2: int,
+                  bits: int) -> torch.Tensor:
+    """Decode replay of (C, L) xor words, one position per step, vectorised
+    across chunks; ``dfcm`` marks the values coded against the DFCM
+    prediction."""
+    wrap = _wrap(bits)
+    C, L = x.shape
+    dev = x.device
+    t1 = torch.zeros((C, 1 << e1), dtype=torch.int64, device=dev)
+    t2 = torch.zeros((C, 1 << e2), dtype=torch.int64, device=dev)
+    z = torch.zeros((C, 1), dtype=torch.int64, device=dev)
+    h1, h2, pred1, pred2, last = z, z, z, z, z
+    m2 = (1 << e2) - 1
+    out = torch.empty((C, L), dtype=torch.int64, device=dev)
+    for i in range(L):
+        pred = torch.where(dfcm[:, i : i + 1], (last + pred2) & wrap, pred1)
+        v = x[:, i : i + 1] ^ pred
+        out[:, i : i + 1] = v
+        t1.scatter_(1, h1, v)
+        if e1:
+            h1 = _top(v, e1, bits)
+        pred1 = t1.gather(1, h1)
+        stride = (v - last) & wrap
+        t2.scatter_(1, h2, stride)
+        if e2:
+            h2 = ((h2 << (e2 // 2)) ^ _top(stride, e2, bits)) & m2
+        pred2 = t2.gather(1, h2)
+        last = v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# predict_xors and predict64_xors
+# ---------------------------------------------------------------------------
+
+
+def predict_xors_plain(values: torch.Tensor, e1: int, e2: int):
+    """(C, L) int32 words → (FCM xor, DFCM xor), by sorts (the counterpart
+    of ``fp_jax._predict_sort``)."""
+    e1, e2 = _norm_exponents(e1, e2)
+    x1, x2 = _predict_words(_u32.widen(values), e1, e2, 32)
+    return _u32.narrow(x1), _u32.narrow(x2)
+
+
+def predict64_xors_plain(values: torch.Tensor, e1: int, e2: int):
+    """(C, L) int64 words → (FCM xor, DFCM xor), by sorts (the counterpart
+    of ``fp64_jax._predict_sort64``)."""
+    e1, e2 = _norm_exponents(e1, e2)
+    return _predict_words(values, e1, e2, 64)
+
+
+def _predict_launch(name: str, fn, values: torch.Tensor, e1: int, e2: int):
+    C, L = values.shape
+    xor1, xor2 = torch.empty_like(values), torch.empty_like(values)
+    if values.numel():
+        _launch(name, fn, values.data_ptr(), xor1.data_ptr(), xor2.data_ptr(),
+                C, L, e1, e2, device=values.device)
+    return xor1, xor2
 
 
 def predict_xors(values: torch.Tensor, e1: int, e2: int):
@@ -135,72 +222,102 @@ def predict_xors(values: torch.Tensor, e1: int, e2: int):
     _check(values, torch.int32, "predict_xors values")
     if _on_cpu(values):
         return predict_xors_plain(values, e1, e2)
-    if _table_bytes(e1, e2) > MAX_SMEM:
-        raise ValueError(f"predict_xors: tables of ({e1},{e2}) exceed one "
-                         f"block's shared memory")
-    C, L = values.shape
-    xor1, xor2 = torch.empty_like(values), torch.empty_like(values)
-    if values.numel():
-        _launch("predict_xors", _lib().tt_predict_xors, values.data_ptr(),
-                xor1.data_ptr(), xor2.data_ptr(), C, L, e1, e2,
-                device=values.device)
-    return xor1, xor2
+    _need_fit("predict_xors", (e1, e2), 4)
+    return _predict_launch("predict_xors", _lib().tt_predict_xors, values,
+                           e1, e2)
+
+
+def predict64_xors(values: torch.Tensor, e1: int, e2: int):
+    """(C, L) int64 words → (xor1, xor2) (C, L): :func:`predict_xors` on
+    u64 words, with u64 tables."""
+    e1, e2 = _norm_exponents(e1, e2)
+    _check(values, torch.int64, "predict64_xors values")
+    if _on_cpu(values):
+        return predict64_xors_plain(values, e1, e2)
+    _need_fit("predict64_xors", (e1, e2), 8)
+    return _predict_launch("predict64_xors", _lib().tt_predict64_xors, values,
+                           e1, e2)
 
 
 # ---------------------------------------------------------------------------
-# replay
+# fcm_multi_xors
+# ---------------------------------------------------------------------------
+
+
+def fcm_multi_xors_plain(values: torch.Tensor, e1s: tuple):
+    """One FCM xor per exponent in ``e1s``, one sort each."""
+    v = _u32.widen(values)
+    vprev = _shift_right(v, 1)
+    return tuple(_u32.narrow(v ^ _prev_occurrence(_top(vprev, e, 32), v))
+                 for e in e1s)
+
+
+def fcm_multi_xors(values: torch.Tensor, e1s):
+    """(C, L) int32 words → a tuple of (C, L) FCM xors, one per exponent in
+    ``e1s``, from one pass over the chunks. Each exponent is 2..30 (e1 = 0
+    is ``v ^ vprev``, which the caller computes)."""
+    e1s = tuple(e1s)
+    if not 0 < len(e1s) <= MAX_FCM or any(not 2 <= e <= 30 for e in e1s):
+        raise ValueError(f"fcm_multi_xors: need 1..{MAX_FCM} exponents in "
+                         f"2..30, got {e1s}")
+    _check(values, torch.int32, "fcm_multi_xors values")
+    if _on_cpu(values):
+        return fcm_multi_xors_plain(values, e1s)
+    _need_fit("fcm_multi_xors", e1s, 4)
+    C, L = values.shape
+    out = torch.empty((len(e1s), C, L), dtype=torch.int32, device=values.device)
+    if values.numel():
+        exps = (ctypes.c_int * len(e1s))(*e1s)
+        _launch("fcm_multi_xors", _lib().tt_fcm_multi_xors, values.data_ptr(),
+                out.data_ptr(), C, L, len(e1s), exps, device=values.device)
+    return tuple(out.unbind(0))
+
+
+# ---------------------------------------------------------------------------
+# replay and replay64
 # ---------------------------------------------------------------------------
 
 
 def replay_plain(bcodes: torch.Tensor, xors: torch.Tensor, e1: int, e2: int):
-    """Decode replay, one position per step, vectorised across chunks."""
+    """f32 decode replay; bcodes above 4 are DFCM (fcm_max = 4)."""
     e1, e2 = _norm_exponents(e1, e2)
+    return _u32.narrow(_replay_words(_u32.widen(xors), bcodes > 4, e1, e2, 32))
+
+
+def replay64_plain(bcodes: torch.Tensor, xors: torch.Tensor, e1: int, e2: int):
+    """f64 decode replay; bcodes above 8 are DFCM (fcm_max = 8)."""
+    e1, e2 = _norm_exponents(e1, e2)
+    return _replay_words(xors, bcodes > 8, e1, e2, 64)
+
+
+def _replay_launch(name: str, bcodes, xors, e1, e2, dtype, word_bytes, plain):
+    e1, e2 = _norm_exponents(e1, e2)
+    _check(bcodes, torch.uint8, f"{name} bcodes")
+    _check(xors, dtype, f"{name} xors")
+    if bcodes.shape != xors.shape:
+        raise ValueError(f"{name}: bcodes and xors differ in shape")
+    if _on_cpu(bcodes, xors):
+        return plain(bcodes, xors, e1, e2)
+    _need_fit(name, (e1, e2), word_bytes)
     C, L = xors.shape
-    dev = xors.device
-    x = _u32.widen(xors)
-    dfcm = bcodes > 4  # fcm_max = 4
-    t1 = torch.zeros((C, 1 << e1), dtype=torch.int64, device=dev)
-    t2 = torch.zeros((C, 1 << e2), dtype=torch.int64, device=dev)
-    z = torch.zeros((C, 1), dtype=torch.int64, device=dev)
-    h1, h2, pred1, pred2, last = z, z, z, z, z
-    m2 = (1 << e2) - 1
-    out = torch.empty((C, L), dtype=torch.int64, device=dev)
-    for i in range(L):
-        pred = torch.where(dfcm[:, i : i + 1], (last + pred2) & _u32.MASK, pred1)
-        v = x[:, i : i + 1] ^ pred
-        out[:, i : i + 1] = v
-        t1.scatter_(1, h1, v)
-        if e1:
-            h1 = v >> (32 - e1)
-        pred1 = t1.gather(1, h1)
-        stride = (v - last) & _u32.MASK
-        t2.scatter_(1, h2, stride)
-        if e2:
-            h2 = ((h2 << (e2 // 2)) ^ (stride >> (32 - e2))) & m2
-        pred2 = t2.gather(1, h2)
-        last = v
-    return _u32.narrow(out)
+    out = torch.empty_like(xors)
+    if xors.numel():
+        _launch(name, getattr(_lib(), f"tt_{name}"), bcodes.data_ptr(),
+                xors.data_ptr(), out.data_ptr(), C, L, e1, e2,
+                device=xors.device)
+    return out
 
 
 def replay(bcodes: torch.Tensor, xors: torch.Tensor, e1: int, e2: int):
     """(C, L) uint8 bcodes and int32 residual xors → (C, L) int32 values."""
-    e1, e2 = _norm_exponents(e1, e2)
-    _check(bcodes, torch.uint8, "replay bcodes")
-    _check(xors, torch.int32, "replay xors")
-    if bcodes.shape != xors.shape:
-        raise ValueError("replay: bcodes and xors differ in shape")
-    if _on_cpu(bcodes, xors):
-        return replay_plain(bcodes, xors, e1, e2)
-    if _table_bytes(e1, e2) > MAX_SMEM:
-        raise ValueError(f"replay: tables of ({e1},{e2}) exceed one block's "
-                         f"shared memory")
-    C, L = xors.shape
-    out = torch.empty_like(xors)
-    if xors.numel():
-        _launch("replay", _lib().tt_replay, bcodes.data_ptr(),
-                xors.data_ptr(), out.data_ptr(), C, L, e1, e2,
-                device=xors.device)
-    return out
+    return _replay_launch("replay", bcodes, xors, e1, e2, torch.int32, 4,
+                          replay_plain)
+
+
+def replay64(bcodes: torch.Tensor, xors: torch.Tensor, e1: int, e2: int):
+    """(C, L) uint8 bcodes and int64 residual xors → (C, L) int64 values."""
+    return _replay_launch("replay64", bcodes, xors, e1, e2, torch.int64, 8,
+                          replay64_plain)
 
 
 # ---------------------------------------------------------------------------

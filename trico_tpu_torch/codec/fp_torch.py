@@ -7,10 +7,13 @@ group tags hoisted to the front:
     [u8 hash_info][u32 BE count][3*L/8 tag bytes][residual bytes]
 
 zero-padded to ``f32_max_chunk_bytes(L)``. Encode is predict (``predict_xors``
-kernel), code choice, then the pack: tags, then the residual region through
-:mod:`.pack_funnel`. Decode is the parse (two ``logshift`` kernel passes),
-then the replay (``replay`` kernel). Device tensors carry u32 words as int32
-bits (:mod:`trico_tpu_torch._u32`); the host functions at the end take and
+kernel, or the sort formulation for tables it cannot hold), code choice,
+then the pack: tags, then the residual region through :mod:`.pack_funnel`.
+The adaptive encode predicts every candidate (grouped by e2, with the
+``fcm_multi_xors`` kernel for extra FCM exponents) and keeps each chunk's
+smallest. Decode is the parse (two ``logshift`` kernel passes), then the
+replay (``replay`` kernel). Device tensors carry u32 words as int32 bits
+(:mod:`trico_tpu_torch._u32`); the host functions at the end take and
 return NumPy arrays, like their JAX counterparts.
 
 The TPU workarounds of the JAX module are not carried over: row blocking
@@ -29,6 +32,9 @@ from . import fp_cuda
 from .fp_cuda import _norm_exponents
 from .pack_funnel import region_bytes_f32
 
+# The adaptive candidate sets of fp_jax.py:790-791: the product default and
+# the optimize="fast" profile.
+F32_TPU_CANDIDATES = ((0, 6), (4, 6), (4, 10), (14, 18))
 F32_TPU_CANDIDATES_FAST = ((0, 6), (4, 6))
 
 
@@ -75,9 +81,25 @@ def _glen32(bc):
     return torch.where(bc >= 5, bc - 4, bc)
 
 
+# the sort formulation of the predictor: the plain twin of the predict_xors
+# kernel, and the route for tables that the kernel cannot hold
+_predict_sort = fp_cuda.predict_xors_plain
+
+
+def _candidate_xors_one(values, e1: int, e2: int):
+    """(xor1, xor2) at normalised (e1, e2): the ``predict_xors`` kernel where
+    its tables fit (:func:`fp_cuda.tables_fit`), the sort formulation
+    otherwise, as ``fp_jax`` routes past its VMEM budget (fp_jax.py:188-195).
+    Both give the same words."""
+    if fp_cuda.tables_fit((e1, e2)):
+        return fp_cuda.predict_xors(values, e1, e2)
+    return _predict_sort(values, e1, e2)
+
+
 def predict_f32_chunks(values, e1: int = 4, e2: int = 10):
     """(C, L) int32 words → (bcode (C, L) uint8, res (C, L) int32)."""
-    return _bcode_res_from_xors(*fp_cuda.predict_xors(values, e1, e2))
+    return _bcode_res_from_xors(*_candidate_xors_one(
+        values, *_norm_exponents(e1, e2)))
 
 
 def pack_f32_chunks_v2(bcode, res, e1: int = 4, e2: int = 10):
@@ -110,40 +132,76 @@ def encode_f32_chunks_v2(values, e1: int = 4, e2: int = 10):
     return pack_f32_chunks_v2(bcode, res, e1, e2)
 
 
-def encode_f32_chunks_v2_adaptive(values, candidates=F32_TPU_CANDIDATES_FAST):
-    """Per-chunk choice of exponents among ``candidates``, smallest payload
-    wins (the first candidate on ties), each chunk stamped with its own
-    hash_info byte.
+def _candidate_xors(values, norm):
+    """(xor1, xor2) per normalised candidate, sharing predictor work.
 
-    Only ``F32_TPU_CANDIDATES_FAST`` = ((0,6),(4,6)) is ported: one (4,6)
-    predict gives the shared DFCM xor and the e1=4 FCM xor, and the e1=0 FCM
-    xor is ``v ^ vprev`` (fp_jax.py:843-866)."""
-    norm = [_norm_exponents(e1, e2) for (e1, e2) in candidates]
-    if norm != [(0, 6), (4, 6)]:
-        raise NotImplementedError(
-            f"adaptive candidates {tuple(candidates)}: only "
-            f"{F32_TPU_CANDIDATES_FAST} is ported; the full set "
-            "F32_TPU_CANDIDATES (FCM multi-exponent kernel, sort predictor) "
-            "is ROADMAP queue 1 item 4")
+    The FCM xor depends only on e1 and the DFCM xor only on e2, so the
+    candidates are grouped by e2 (fp_jax.py:822-867): a group of several
+    distinct e1s with e2 > 0, one of them nonzero, whose tables fit, takes
+    one ``predict_xors`` pass at (first nonzero e1, e2), one
+    ``fcm_multi_xors`` pass for its other nonzero e1s, and ``v ^ vprev`` for
+    e1 = 0. Every other candidate takes its own predictor."""
+    results = [None] * len(norm)
+    by_e2: dict = {}
+    for i, (e1, e2) in enumerate(norm):
+        by_e2.setdefault(e2, []).append(i)
+    for e2, idxs in by_e2.items():
+        e1s = [norm[i][0] for i in idxs]
+        nonzero = [e1 for e1 in dict.fromkeys(e1s) if e1]
+        main, rest = (nonzero[0], tuple(nonzero[1:])) if nonzero else (0, ())
+        fusable = (len(idxs) > 1 and e2 > 0 and nonzero
+                   and len(set(e1s)) == len(e1s)
+                   and fp_cuda.tables_fit((main, e2))
+                   and len(rest) <= fp_cuda.MAX_FCM
+                   and fp_cuda.tables_fit(rest))
+        if not fusable:
+            for i in idxs:
+                results[i] = _candidate_xors_one(values, *norm[i])
+            continue
+        xor1 = {}
+        xor1[main], xor2 = fp_cuda.predict_xors(values, main, e2)
+        if rest:
+            xor1.update(zip(rest, fp_cuda.fcm_multi_xors(values, rest)))
+        if 0 in e1s:
+            xor1[0] = values ^ fp_cuda._shift_right(values, 1)
+        for i in idxs:
+            results[i] = (xor1[norm[i][0]], xor2)
+    return results
+
+
+def _choose(sizes, *per_candidate):
+    """The first minimum of the per-candidate (C,) ``sizes`` for each chunk
+    (first candidate on ties, as the host optimizer), and for each list of
+    per-candidate (C, L) arrays the chosen rows."""
+    choice = torch.argmin(torch.stack(sizes), dim=0)
+    rows = torch.arange(len(choice), device=choice.device)
+    return choice, [torch.stack(xs)[choice, rows] for xs in per_candidate]
+
+
+def _stamp_hash_info(payloads, norm, choice) -> None:
+    """Write each chunk's chosen exponents into its hash_info byte."""
+    infos = torch.tensor([hash_info(*e) for e in norm], dtype=torch.uint8,
+                         device=payloads.device)
+    payloads[:, 0] = infos[choice]
+
+
+def encode_f32_chunks_v2_adaptive(values, candidates=F32_TPU_CANDIDATES):
+    """Per-chunk choice of exponents among ``candidates``: exact sizes from
+    each candidate's bcodes, the smallest payload wins (the first candidate
+    on ties), one pack, each chunk stamped with its own hash_info byte
+    (fp_jax.py:879-907). Any candidate set is taken."""
     C, L = values.shape
     G = L // 8
-    xor1_4, xor2 = fp_cuda.predict_xors(values, 4, 6)
-    vprev = torch.zeros_like(values)
-    vprev[:, 1:] = values[:, :-1]
+    norm = [_norm_exponents(e1, e2) for (e1, e2) in candidates]
     bcs, ress, sizes = [], [], []
-    for xor1 in (values ^ vprev, xor1_4):
+    for xor1, xor2 in _candidate_xors(values, norm):
         bc, res = _bcode_res_from_xors(xor1, xor2)
         bcs.append(bc)
         ress.append(res)
         sizes.append(5 + 3 * G + _glen32(bc).sum(dim=1, dtype=torch.int32))
-    choice = torch.argmin(torch.stack(sizes), dim=0)  # first minimum wins
-    pick = (choice == 1)[:, None]
-    bc = torch.where(pick, bcs[1], bcs[0])
-    res = torch.where(pick, ress[1], ress[0])
+    choice, (bc, res) = _choose(sizes, bcs, ress)
     payloads, total = pack_f32_chunks_v2(bc, res, *norm[0])
-    infos = torch.tensor([hash_info(*e) for e in norm], dtype=torch.uint8,
-                         device=values.device)
-    payloads[:, 0] = infos[choice]
+    _stamp_hash_info(payloads, norm, choice)
     return payloads, total
 
 
@@ -282,7 +340,7 @@ def encode_f32(values_u32: np.ndarray, chunk_len: int, e1: int = 4,
 
 
 def encode_f32_adaptive(values_u32: np.ndarray, chunk_len: int,
-                        candidates=F32_TPU_CANDIDATES_FAST,
+                        candidates=F32_TPU_CANDIDATES,
                         layout: str = "tpu", *, device):
     """Adaptive per-chunk exponent encode of a flat uint32 stream; see
     :func:`encode_f32_chunks_v2_adaptive`. Returns as :func:`encode_f32`."""
