@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drive trico_tpu_torch's chunked FP codec (f32 and f64) on one NVIDIA GPU.
+"""Drive trico_tpu_torch on one NVIDIA GPU: the chunked FP codec (f32 and
+f64, both chunk layouts), the BP and LZ4 integer codecs, whole v1 mesh
+archives and the CLI.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -14,14 +16,21 @@ Phases, each fatal on failure:
    card, at the shapes the main paths give it: the f32 bench stream (8M
    values, chunks of 4096, exponents (4,6), 16384 slots per parse row),
    the adaptive encode with candidates ((0,6),(4,6),(8,6),(4,10)), which
-   gives ``fcm_multi_xors`` e1s=(8,), and the f64 bench stream (16M
-   doubles, chunks of 4096, (4,6), 32768 slots per row); besides, predict
-   and replay (both widths) at more exponents on words with NaN, inf, zero,
+   gives ``fcm_multi_xors`` e1s=(8,), the f64 bench stream (16M doubles,
+   chunks of 4096, (4,6), 32768 slots per row), the reference-layout f32
+   and f64 legs (device predict and replay around the host library's pack
+   and parse) at (256, 4096), BP32 encode and decode of the whole fullmesh
+   triangle stream of phase 5 at (5376, 16384) and BP64 (bits 40-46
+   cycling) at (10752, 8192) (65536 slots per row, 16-bit slot ids in the
+   decode: the ``logshift`` word's top bit set), and every call of the Lucy
+   archive of phase 6 written and read at ``optimize=True`` in both
+   layouts; the plain versions run over blocks of rows. Besides, predict and
+   replay (both widths) at more exponents on words with NaN, inf, zero,
    subnormal and negative patterns, f32 predict also at (14,14), whose
    128 KB of tables take a block of one warp, and ``fcm_multi_xors`` at
    (2,6,8). Tolerance: exact equality of every word. Times of both from
-   CUDA events;
-4. drive the main paths through ``encode_chunked`` / ``decode_chunked`` and
+   CUDA events, and ``logshift``'s also at 65536 slots;
+4. drive the FP paths through ``encode_chunked`` / ``decode_chunked`` and
    ``fp_torch.encode_f32_adaptive``: the f32 bench stream fixed, ``"fast"``
    and ``optimize=True``; the f64 bench stream (bench.py:290-293) at
    (4,6), ``"fast"`` and ``optimize=True``; the custom candidate set; the
@@ -30,13 +39,33 @@ Phases, each fatal on failure:
    every profile. Every round trip must be bit-exact, and 16 chunks of
    several of them, relaid out to the reference layout, must equal
    ``fp_ref.compress`` of their values at their hash_info exponents;
-5. print device-resident encode and decode GB/s, from CUDA events;
-6. print the kernels line: each kernel's launches during phase 4 (each must
-   be > 0), its largest difference from the plain version and both times.
+5. drive the integer paths: the fullmesh triangle stream of
+   bench.py:231-236 (88,080,384 u32 indices) through ``encode_bp_chunked``
+   / ``decode_bp_chunked`` at 16384, the same indices as u64, and again
+   with bits 40-46 cycling (more than 32 planes), at 8192, 16 chunks of each
+   equal to ``bp_ref.encode_chunk``; its four byte planes through
+   ``encode_lz4_chunked`` at 1 MiB blocks (the match search on the card)
+   and the host decoder, and the card's ``find_matches`` of two blocks
+   against the same function on CPU tensors. All bit-exact;
+6. write whole v1 archives with ``ArchiveWriter(chunk_len=4096,
+   device="cuda")``: the Lucy-class mesh of bench.py:419-432 at 2,000,000
+   requested vertices with vertex normals and colors, at ``optimize=True``
+   and ``"fast"``, in both chunk layouts, read back by
+   ``ArchiveReader(device="cuda")`` bit-exact; and the bunny with one
+   stream of every kind, whose archive must be the same bytes when written
+   with ``device="cpu"``;
+7. run ``python -m trico_tpu_torch encode`` and ``decode`` on the bunny STL
+   with ``--device cuda`` as subprocesses: the geometry read back must equal
+   the input, and the archive the in-process writer's;
+8. print device-resident encode and decode GB/s (f32, f64, BP32, BP64) and
+   ``find_matches`` ms per 1 MiB block, from CUDA events;
+9. print the kernels line: each kernel's launches during phases 4-6 (each
+   must be > 0, and ``logshift`` must launch in phase 5), its largest
+   difference from the plain version and both times.
 
-The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
-without the repository beside it, the script exits non-zero and prints no
-result.
+Every leg prints its peak device memory. The last line is ``{"ok": true,
+"device": {...}}``. Without a CUDA card, or without the repository beside
+it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -54,11 +83,12 @@ REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
 from trico_tpu.chunked import parse_validated_framing  # noqa: E402
-from trico_tpu.codec import fp_ref  # noqa: E402
-from trico_tpu.io.stl import read_stl  # noqa: E402
-from trico_tpu_torch import _u32, _u64, chunked  # noqa: E402
-from trico_tpu_torch.codec import (_build, fp64_torch, fp_cuda,  # noqa: E402
-                                   fp_torch)
+from trico_tpu.codec import bp_ref, fp_ref, transpose  # noqa: E402
+from trico_tpu.io.stl import compute_triangle_normals, read_stl  # noqa: E402
+from trico_tpu_torch import (ArchiveReader, ArchiveWriter, _u32,  # noqa: E402
+                             _u64, chunked)
+from trico_tpu_torch.codec import (_build, bp_torch, fp64_torch,  # noqa: E402
+                                   fp_cuda, fp_torch, lz4_torch)
 
 N_VALUES = 1 << 23  # bench.py's f32 stream: 8M values
 N_F64 = 1 << 24  # bench.py's f64 stream: 16M doubles
@@ -71,6 +101,14 @@ REPAIR_EXP = (16, 16)  # tables past any block: the sort predictor
 # an adaptive set with a 3-member e2 group: fcm_multi_xors gets e1s=(8,)
 CUSTOM_CANDIDATES = ((0, 6), (4, 6), (8, 6), (4, 10))
 FCM_EXTRA_E1S = (2, 6, 8)
+FULLMESH_TRIANGLES = 28 << 20  # bench.py:231: 88,080,384 u32 indices
+BP_CHUNK = 16384  # the BP32 default (trico_tpu/chunked.py:464)
+BP64_CHUNK = 8192  # the BP64 cap (trico_tpu/chunked.py:481-484)
+LZ4_BLOCK = chunked.DEFAULT_LZ4_BLOCK  # 1 MiB
+LUCY_VERTS = 2_000_000  # bench.py:419-432, side 1414
+PLAIN_BLOCK = 1 << 26  # words of the first argument a plain call takes at once
+REF_CHUNKS = 256  # FP chunks a reference-layout capture takes
+WORK = REPO / "build" / "chip_smoke"  # the CLI's files (gitignored)
 SOURCE = "trico_tpu_torch/codec/csrc/fp_kernels.cu"
 PALLAS = "trico_tpu/codec/fp_pallas.py"
 REPLACES = {
@@ -154,7 +192,7 @@ def time_ms(fn, reps: int) -> float:
 
 def max_abs_err(a, b) -> int:
     """Largest |a - b| over two tensors of u32 (int32) or u64 (int64) words."""
-    if not a.numel():
+    if torch.equal(a, b):
         return 0
     if a.dtype == torch.int64:  # u64 words: compare the two u32 halves
         return max(max_abs_err(_u32.narrow(a >> 32), _u32.narrow(b >> 32)),
@@ -184,11 +222,47 @@ def record_calls(run):
     return seen
 
 
-def capture_main_path_inputs(x, x64):
+def fullmesh_indices() -> np.ndarray:
+    """bench.py:231-236's triangle stream: 3 * 28 * 2^20 u32 indices, the
+    largest 29,361,164 (so no byte plane is constant)."""
+    i = np.arange(3 * FULLMESH_TRIANGLES, dtype=np.uint32)
+    return i // 3 + (i % 3) * 7 + i % 1024
+
+
+def wide_indices(t: np.ndarray) -> np.ndarray:
+    """The indices as u64 with bits 40-46 cycling through 0..96: zigzag
+    deltas past 2^40, so every group needs more than 32 planes."""
+    i = np.arange(len(t), dtype=np.uint64)
+    return t.astype(np.uint64) | ((i % 97) << np.uint64(40))
+
+
+def plain_by_rows(plain, args):
+    """``plain(*args)`` over blocks of rows of its (C, ...) tensor arguments,
+    concatenated: every kernel treats each row (chunk) alone, and a block
+    keeps the plain version's int64 temporaries to a few GB."""
+    C = args[0].shape[0]
+    step = max(1, PLAIN_BLOCK // max(1, args[0][0].numel()))
+    if step >= C:
+        return plain(*args)
+    parts = [plain(*(a[i : i + step] if torch.is_tensor(a) else a for a in args))
+             for i in range(0, C, step)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
+
+
+def capture_main_path_inputs(x, x64, raw, raw64, tflat, lucy):
     """Run the main paths once at their shapes and record what each kernel
     wrapper was given: f32 encode and decode at (4,6), the adaptive encode
-    with the custom candidate set, f64 encode and decode at (4,6)."""
-    def run():
+    with the custom candidate set, f64 encode and decode at (4,6), the
+    reference-layout f32 and f64 legs, BP32 and BP64 encode and decode of
+    the whole fullmesh stream, and the Lucy archive written and read at
+    ``optimize=True`` in both layouts. Returns the calls by kernel and,
+    apart, the BP legs' ``logshift`` calls."""
+    bp32 = _u32.from_numpy(tflat.reshape(-1, BP_CHUNK)).cuda()
+    bp64 = _u64.from_numpy(wide_indices(tflat).reshape(-1, BP64_CHUNK)).cuda()
+
+    def run_fp():
         payloads, _ = fp_torch.encode_f32_chunks_v2(x, *EXP)
         back = fp_torch.decode_f32_chunks_v2(payloads, x.shape[1], *EXP)
         check(torch.equal(back, x), "f32 encode/decode round trip at the "
@@ -198,14 +272,38 @@ def capture_main_path_inputs(x, x64):
         back = fp64_torch.decode_f64_chunks_v2(payloads, x64.shape[1], *EXP)
         check(torch.equal(back, x64), "f64 encode/decode round trip at the "
               "bench shape")
+        for vals, mod in ((raw, fp_torch), (raw64, fp64_torch)):
+            vals = vals[: REF_CHUNKS * CHUNK_LEN]
+            enc = mod.encode_f32 if mod is fp_torch else mod.encode_f64
+            dec = mod.decode_f32 if mod is fp_torch else mod.decode_f64
+            mat, _, _ = enc(vals, CHUNK_LEN, *EXP, layout="ref", device="cuda")
+            back = dec(mat, CHUNK_LEN, *EXP, layout="ref", device="cuda")
+            check(np.array_equal(back, vals), "reference-layout round trip "
+                  f"({vals.dtype})")
 
-    return record_calls(run)
+    def run_bp():
+        for words, enc, dec in ((bp32, bp_torch.encode_bp32_chunks,
+                                 bp_torch.decode_bp32_chunks),
+                                (bp64, bp_torch.encode_bp64_chunks,
+                                 bp_torch.decode_bp64_chunks)):
+            payloads, _ = enc(words)
+            check(torch.equal(dec(payloads, words.shape[1]), words),
+                  f"BP round trip at {tuple(words.shape)}")
+
+    def run_archives():
+        for layout in ("tpu", "ref"):
+            data = write_archive(lucy, "cuda", layout=layout)
+            read_archive(data, lucy, f"Lucy archive capture, layout={layout}")
+
+    seen = [record_calls(run) for run in (run_fp, run_bp, run_archives)]
+    return ({k: sum((s[k] for s in seen), []) for k in fp_cuda.KERNELS},
+            seen[1]["logshift"])
 
 
-def kernel_phase(x, x64):
+def kernel_phase(x, x64, raw, raw64, tflat, lucy):
     """Phase 3: every kernel against its plain version on the card. Extra
     replay cases must also restore the words they were predicted from."""
-    seen = capture_main_path_inputs(x, x64)
+    seen, bp_calls = capture_main_path_inputs(x, x64, raw, raw64, tflat, lucy)
     special = _u32.from_numpy(special_words(256, CHUNK_LEN)).cuda()
     mixed = torch.cat([x[:256], special])
     special64 = _u64.from_numpy(special_words64(256, CHUNK_LEN)).cuda()
@@ -231,7 +329,7 @@ def kernel_phase(x, x64):
         cases = [(args, None) for args in seen[name]] + extra[name]
         err = 0
         for i, (args, restores) in enumerate(cases):
-            got, want = kern(*args), plain(*args)
+            got, want = kern(*args), plain_by_rows(plain, args)
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
@@ -251,6 +349,19 @@ def kernel_phase(x, x64):
               f"{tuple(args0[0].shape)}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms", flush=True)
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    # BP32 and BP64 of the whole stream: encode bytes (pb 8), decode slot ids
+    # (pb 16), bytes (pb 8); each call was among the cases held above
+    shapes = [tuple(args[0].shape) for args in bp_calls]
+    want = ([(len(tflat) // BP_CHUNK, 1 << 16)] * 3
+            + [(len(tflat) // BP64_CHUNK, 1 << 16)] * 3)
+    check(shapes == want, f"logshift: BP calls at {shapes}, want {want}")
+    for args in bp_calls:
+        ms = time_ms(lambda: fp_cuda.logshift(*args), 20)
+        plain_ms = time_ms(lambda: plain_by_rows(PLAIN["logshift"], args), 3)
+        print(f"kernel logshift at 65536 slots {tuple(args[0].shape)}, pb = "
+              f"{args[1]}, {args[2]}: exact; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (in blocks of {PLAIN_BLOCK >> 16} rows)",
+              flush=True)
     return results
 
 
@@ -328,7 +439,7 @@ def custom_candidates_leg(raw) -> None:
 
 
 def main_path_phase(raw, raw64):
-    """Phase 4: the user-facing entry points on the card, bit-exact."""
+    """Phase 4: the FP entry points on the card, bit-exact."""
     round_trip(raw, "f32 (4,6)", v1_check=True)
     round_trip(raw, "f32 fast", optimize="fast")
     round_trip(raw, "f32 optimize=True", optimize=True, v1_check=True)
@@ -357,8 +468,215 @@ def main_path_phase(raw, raw64):
           flush=True)
 
 
-def throughput_phase(x, x64):
-    """Phase 5: device-resident encode and decode rates."""
+def peak_mib() -> str:
+    """The card's peak allocated memory since the last reset, then reset."""
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    return f"peak device memory {peak:.0f} MiB"
+
+
+def bp_leg(values: np.ndarray, chunk_len: int, what: str) -> None:
+    """encode_bp_chunked then decode_bp_chunked on the card, bit-exact, and
+    16 chunks equal to bp_ref.encode_chunk."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    blob = chunked.encode_bp_chunked(values, chunk_len, device="cuda")
+    t1 = time.perf_counter()
+    back = chunked.decode_bp_chunked(blob, device="cuda")
+    t2 = time.perf_counter()
+    check(back.dtype == values.dtype and np.array_equal(back, values),
+          f"{what}: round trip")
+    L = parse_validated_framing(blob)[0].chunk_len
+    check(L == chunk_len, f"{what}: chunk length {L}")
+    for c, p in enumerate(container_chunks(blob)[:16]):
+        check(p.tobytes() == bp_ref.encode_chunk(values[c * L : (c + 1) * L]),
+              f"{what}: chunk {c} differs from bp_ref.encode_chunk")
+    print(f"main path {what}: {len(values)} values -> {len(blob)} B (ratio "
+          f"{values.nbytes / len(blob):.4f}), encode_bp_chunked {t1 - t0:.3f} s, "
+          f"decode_bp_chunked {t2 - t1:.3f} s (host clock); bit-exact, 16 "
+          f"chunks equal bp_ref.encode_chunk; {peak_mib()}", flush=True)
+
+
+def lz4_leg(tflat: np.ndarray) -> None:
+    """The four byte planes of the triangle stream through
+    encode_lz4_chunked on the card and the host decoder, bit-exact; the
+    card's find_matches of two blocks equals the CPU's."""
+    device_calls = []
+    real = lz4_torch.find_matches
+
+    def counted(blocks):
+        if blocks.is_cuda:
+            device_calls.append(tuple(blocks.shape))
+        return real(blocks)
+
+    planes = transpose.byte_planes(tflat)
+    lz4_torch.find_matches = counted
+    try:
+        for k, plane in enumerate(planes):
+            check(bool(np.any(plane != plane[0])), f"byte plane {k} is constant")
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            blob = chunked.encode_lz4_chunked(plane, device="cuda")
+            t1 = time.perf_counter()
+            back = chunked.decode_lz4_chunked(blob)
+            t2 = time.perf_counter()
+            check(np.array_equal(back, plane), f"LZ4 byte plane {k}: round trip")
+            print(f"main path LZ4 byte plane {k} of the triangle stream: "
+                  f"{len(plane)} B -> {len(blob)} B (ratio "
+                  f"{len(plane) / len(blob):.4f}), encode_lz4_chunked "
+                  f"{t1 - t0:.3f} s, decode_lz4_chunked {t2 - t1:.3f} s (host "
+                  f"clock); bit-exact; {peak_mib()}", flush=True)
+    finally:
+        lz4_torch.find_matches = real
+    full_blocks = len(tflat) // LZ4_BLOCK
+    check(device_calls == [(full_blocks, LZ4_BLOCK)] * 4,
+          f"find_matches on the card: {device_calls}")
+    blocks = torch.from_numpy(planes[0][: 2 * LZ4_BLOCK].reshape(2, LZ4_BLOCK))
+    got = lz4_torch.find_matches(blocks.cuda())
+    want = lz4_torch.find_matches(blocks)
+    for g, w in zip(got, want):
+        check(torch.equal(g.cpu(), w), "find_matches: card differs from CPU")
+    print(f"main path LZ4: {len(device_calls)} find_matches calls on the card "
+          f"({full_blocks} blocks of {LZ4_BLOCK} B each); the card's "
+          "find_matches of 2 blocks equals the CPU's", flush=True)
+
+
+def integer_phase(tflat: np.ndarray) -> None:
+    """Phase 5: BP32, BP64 and LZ4 through the container entry points."""
+    bp_leg(tflat, BP_CHUNK, "BP32 fullmesh triangles")
+    t64 = tflat.astype(np.uint64)
+    bp_leg(t64, BP64_CHUNK, "BP64 fullmesh triangles")
+    bp_leg(wide_indices(tflat), BP64_CHUNK, "BP64 fullmesh triangles, bits "
+           "40-46 cycling")
+    del t64
+    lz4_leg(tflat)
+
+
+def lucy_mesh(n_verts: int):
+    """bench.py:419-432's synthetic Lucy-class mesh (a smooth scan surface
+    on a grid), with vertex normals and u32 colors quantised from the
+    positions (alpha 0xFF)."""
+    side = int(np.sqrt(n_verts))
+    th = np.linspace(0.2, np.pi - 0.2, side, dtype=np.float32)[:, None]
+    ph = np.linspace(0.0, 1.7 * np.pi, side, dtype=np.float32)[None, :]
+    r = 10.0 + np.cumsum(np.random.default_rng(0).normal(
+        0, 1e-3, (side, side)).astype(np.float32), axis=1)
+    verts = np.stack([(r * np.sin(th) * np.cos(ph)).ravel(),
+                      (r * np.sin(th) * np.sin(ph)).ravel(),
+                      (r * np.cos(th) * np.ones_like(ph)).ravel()],
+                     axis=1).astype(np.float32)
+    i, j = np.meshgrid(np.arange(side - 1), np.arange(side - 1), indexing="ij")
+    v00 = (i * side + j).ravel()
+    v01, v10 = v00 + 1, v00 + side
+    tris = np.concatenate([np.stack([v00, v10, v01], 1),
+                           np.stack([v01, v10, v10 + 1], 1)]).astype(np.uint32)
+    normals = (verts / np.linalg.norm(verts, axis=1, keepdims=True)).astype(np.float32)
+    return [("write_vertices", verts), ("write_triangles", tris),
+            ("write_vertex_normals", normals),
+            ("write_vertex_colors", quantised_colors(verts))]
+
+
+def quantised_colors(xyz: np.ndarray) -> np.ndarray:
+    lo, hi = xyz.min(axis=0), xyz.max(axis=0)
+    q = ((xyz - lo) / (hi - lo) * 255).astype(np.uint32)
+    return 0xFF000000 | q[:, 0] | (q[:, 1] << 8) | (q[:, 2] << 16)
+
+
+def bunny_every_kind(verts: np.ndarray, tris: np.ndarray):
+    """One stream of each of the 20 kinds, from the bunny."""
+    v64 = verts.astype(np.float64)
+    tn = compute_triangle_normals(verts, tris)
+    vn = (verts / np.linalg.norm(verts, axis=1, keepdims=True)).astype(np.float32)
+    uvt = verts[tris][:, :, :2].reshape(-1, 6)
+    q = quantised_colors(verts)
+    streams = []
+    for sfx, cast in (("", np.float32), ("_double", np.float64)):
+        streams += [(f"write_vertices{sfx}", verts.astype(cast)),
+                    (f"write_vertex_normals{sfx}", vn.astype(cast)),
+                    (f"write_triangle_normals{sfx}", tn.astype(cast)),
+                    (f"write_uv_per_vertex{sfx}", verts[:, :2].astype(cast)),
+                    (f"write_uv_per_triangle{sfx}", uvt.astype(cast))]
+    return streams + [
+        ("write_attributes_float", verts[:, 2].copy()),
+        ("write_attributes_double", v64[:, 2].copy()),
+        ("write_triangles", tris), ("write_triangles_long", tris.astype(np.uint64)),
+        ("write_vertex_colors", q),
+        ("write_triangle_colors", quantised_colors(tn)),
+        ("write_attributes_uint8", (q & 0xFF).astype(np.uint8)),
+        ("write_attributes_uint16", (q & 0xFFFF).astype(np.uint16)),
+        ("write_attributes_uint32", q ^ 0xFF000000),
+        ("write_attributes_uint64", q.astype(np.uint64) << np.uint64(30))]
+
+
+def write_archive(streams, device: str, **kw) -> bytes:
+    w = ArchiveWriter(chunk_len=CHUNK_LEN, device=device, **kw)
+    for method, arr in streams:
+        getattr(w, method)(arr)
+    return w.tobytes()
+
+
+def read_archive(data: bytes, streams, what: str) -> None:
+    got = list(ArchiveReader(data, device="cuda").streams())
+    check(len(got) == len(streams), f"{what}: {len(got)} streams read")
+    for (method, want), (_, arr) in zip(streams, got):
+        check(arr.dtype == want.dtype and np.array_equal(arr.reshape(want.shape), want),
+              f"{what}: {method} not read back bit-exact")
+
+
+def archive_phase(lucy, bunny_verts, bunny_tris) -> None:
+    """Phase 6: whole v1 archives through ArchiveWriter / ArchiveReader."""
+    raw = sum(a.nbytes for _, a in lucy)
+    print(f"archive Lucy-class mesh: {len(lucy[0][1])} vertices, "
+          f"{len(lucy[1][1])} triangles, normals and colors, {raw} B raw",
+          flush=True)
+    for layout in ("tpu", "ref"):
+        for opt in (True, "fast"):
+            what = f"Lucy archive layout={layout} optimize={opt}"
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            data = write_archive(lucy, "cuda", layout=layout, optimize=opt)
+            t1 = time.perf_counter()
+            read_archive(data, lucy, what)
+            t2 = time.perf_counter()
+            print(f"main path {what}: {len(data)} B (ratio {raw / len(data):.4f}), "
+                  f"write {t1 - t0:.3f} s, read {t2 - t1:.3f} s (host clock); "
+                  f"every stream bit-exact; {peak_mib()}", flush=True)
+    every = bunny_every_kind(bunny_verts, bunny_tris)
+    for layout in ("tpu", "ref"):
+        data = write_archive(every, "cuda", layout=layout)
+        read_archive(data, every, f"bunny every kind, layout={layout}")
+        check(data == write_archive(every, "cpu", layout=layout),
+              f"bunny every kind, layout={layout}: cuda and cpu bytes differ")
+    print(f"main path bunny archive with all {len(every)} stream kinds, both "
+          "layouts: bit-exact, the same bytes from device cuda and cpu",
+          flush=True)
+
+
+def cli_phase(bunny_verts, bunny_tris) -> None:
+    """Phase 7: the CLI on the card, as subprocesses."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    src = REPO / "tests" / "data" / "StanfordBunny.stl"
+    trc, back = WORK / "bunny.trc", WORK / "bunny_back.stl"
+    t0 = time.perf_counter()
+    for args in (["encode", "-i", src, "-o", trc], ["decode", "-i", trc, "-o", back]):
+        res = subprocess.run([sys.executable, "-m", "trico_tpu_torch",
+                              *map(str, args), "--device", "cuda"], cwd=REPO,
+                             capture_output=True, text=True, timeout=600)
+        check(res.returncode == 0, f"CLI {args[0]} failed:\n{res.stderr[-3000:]}")
+    v, t = read_stl(back)
+    check(np.array_equal(v.view(np.uint32), bunny_verts.view(np.uint32))
+          and np.array_equal(t, bunny_tris), "CLI: geometry read back differs")
+    want = write_archive([("write_vertices", bunny_verts),
+                          ("write_triangles", bunny_tris)], "cuda")
+    check(trc.read_bytes() == want, "CLI: archive differs from ArchiveWriter's")
+    print(f"CLI: python -m trico_tpu_torch encode and decode --device cuda on "
+          f"the bunny STL ({time.perf_counter() - t0:.1f} s for both "
+          "processes): geometry equal, archive equal to ArchiveWriter's",
+          flush=True)
+
+
+def throughput_phase(x, x64, tflat):
+    """Phase 8: device-resident encode and decode rates."""
     def report(what, words, enc, dec=None):
         """Encode (and decode) rates of (C, L) words; decode must restore."""
         nbytes = words.numel() * words.element_size()
@@ -385,6 +703,26 @@ def throughput_phase(x, x64):
     report("f64 optimize=True", x64,
            lambda w: fp64_torch.encode_f64_chunks_v2_adaptive(
                w, fp64_torch.F64_TPU_CANDIDATES))
+    torch.cuda.reset_peak_memory_stats()
+    t32 = _u32.from_numpy(tflat.reshape(-1, BP_CHUNK)).cuda()
+    report("BP32 fullmesh triangles", t32, bp_torch.encode_bp32_chunks,
+           lambda p: bp_torch.decode_bp32_chunks(p, BP_CHUNK))
+    print(f"  BP32: {peak_mib()}", flush=True)
+    del t32
+    t64 = _u64.from_numpy(tflat.astype(np.uint64).reshape(-1, BP64_CHUNK)).cuda()
+    report("BP64 fullmesh triangles", t64, bp_torch.encode_bp64_chunks,
+           lambda p: bp_torch.decode_bp64_chunks(p, BP64_CHUNK))
+    print(f"  BP64: {peak_mib()}", flush=True)
+    del t64
+    plane = transpose.byte_planes(tflat)[0]
+    blocks = torch.from_numpy(plane[: len(plane) // LZ4_BLOCK * LZ4_BLOCK]
+                              .reshape(-1, LZ4_BLOCK)).cuda()
+    all_ms = time_ms(lambda: lz4_torch.find_matches(blocks), 3)
+    one_ms = time_ms(lambda: lz4_torch.find_matches(blocks[:1]), 10)
+    print(f"throughput find_matches (device-resident, CUDA events): "
+          f"{blocks.shape[0]} blocks of {LZ4_BLOCK} B in {all_ms:.3f} ms, "
+          f"{all_ms / blocks.shape[0]:.4f} ms per block; one block alone "
+          f"{one_ms:.4f} ms; {peak_mib()}", flush=True)
 
 
 def main() -> int:
@@ -406,23 +744,43 @@ def main() -> int:
 
     raw = bench_stream(N_VALUES)
     raw64 = bench_stream64(N_F64)
+    tflat = fullmesh_indices()
     x = _u32.from_numpy(raw.reshape(-1, CHUNK_LEN)).cuda()
     x64 = _u64.from_numpy(raw64.reshape(-1, CHUNK_LEN)).cuda()
-    kern = kernel_phase(x, x64)
+    lucy = lucy_mesh(LUCY_VERTS)
+    t0 = time.perf_counter()
+    kern = kernel_phase(x, x64, raw, raw64, tflat, lucy)
+    print(f"kernel phase: {time.perf_counter() - t0:.1f} s; {peak_mib()}",
+          flush=True)
 
-    fp_cuda.reset_launches()
-    main_path_phase(raw, raw64)
-    torch.cuda.synchronize()
-    counts = dict(fp_cuda.launches)
+    bunny_verts, bunny_tris = read_stl(REPO / "tests" / "data" / "StanfordBunny.stl")
+    # each path runs with the launch counts at 0 and is read just after
+    paths = {"fp": lambda: main_path_phase(raw, raw64),
+             "integer": lambda: integer_phase(tflat),
+             "archive": lambda: archive_phase(lucy, bunny_verts, bunny_tris)}
+    by_path = {}
+    for path, run in paths.items():
+        fp_cuda.reset_launches()
+        run()
+        torch.cuda.synchronize()
+        by_path[path] = dict(fp_cuda.launches)
+    cli_phase(bunny_verts, bunny_tris)
 
-    throughput_phase(x, x64)
+    throughput_phase(x, x64, tflat)
 
+    check(by_path["integer"]["logshift"] > 0, "logshift: no launch in the "
+          "integer path")
     rows = []
     for name in fp_cuda.KERNELS:
-        check(counts[name] > 0, f"{name}: no launch in the main path")
+        check(by_path["fp"][name] > 0, f"{name}: no launch in the FP path")
+        if name != "fcm_multi_xors":  # only the custom candidate set has it
+            check(by_path["archive"][name] > 0,
+                  f"{name}: no launch in the archive path")
         replaces, also = REPLACES[name]
         row = {"name": name, "route": "cuda", "source": SOURCE,
-               "replaces": replaces, "launches": counts[name], **kern[name]}
+               "replaces": replaces,
+               "launches": sum(c[name] for c in by_path.values()), **kern[name],
+               "launches_by_path": {p: c[name] for p, c in by_path.items()}}
         if also:
             row["also_replaces"] = also
         rows.append(row)

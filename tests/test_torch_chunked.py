@@ -14,6 +14,7 @@ import trico_tpu.chunked as jc
 import trico_tpu.native
 from trico_tpu.codec import fp64_jax, fp_jax
 import trico_tpu_torch.chunked as tc
+from trico_tpu_torch.codec import fp64_torch
 
 from torch_cases import words, words64
 
@@ -175,30 +176,43 @@ def test_f64_host_fallbacks_without_native_library(monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["f64", "ref", "optimize", "float32"])
-def test_unported_encodes_raise(case):
-    """The reference layout is not ported for either width or any optimize
-    profile; float arrays are not raw bits."""
-    vals = {"f64": np.zeros(16, np.uint64),
-            "float32": np.zeros(16, np.float32)}.get(case, np.zeros(16, np.uint32))
-    kw = {"float32": {}, "optimize": {"layout": "ref", "optimize": True}}.get(
+def test_unported_encodes_raise(case, monkeypatch):
+    """What is not ported raises: the f32 reference layout without the C++
+    host library (its device pack), at fixed exponents; a reference-layout
+    f64 adaptive chunk encode (none exists in fp64_jax either); an unknown
+    layout. Float arrays are not raw bits."""
+    monkeypatch.setattr(trico_tpu.native, "available", lambda: False)
+    if case == "f64":
+        with pytest.raises(ValueError):
+            fp64_torch.encode_f64_adaptive(np.zeros(16, np.uint64), 8,
+                                           layout="ref", device="cpu")
+        return
+    vals = np.zeros(16, np.float32 if case == "float32" else np.uint32)
+    kw = {"float32": {}, "optimize": {"layout": "v3", "optimize": True}}.get(
         case, {"layout": "ref"})
-    err = TypeError if case == "float32" else NotImplementedError
+    err = {"float32": TypeError, "optimize": ValueError}.get(case, NotImplementedError)
     with pytest.raises(err):
         tc.encode_chunked(vals, 8, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("case", ["f64", "ref", "lz4"])
-def test_unported_decodes_raise(case):
-    if case == "f64":
-        blob = jc.encode_chunked(np.arange(16, dtype=np.uint64), 8,
-                                 use_tpu=False, layout="ref")
-    elif case == "ref":
-        blob = jc.encode_chunked(np.arange(16, dtype=np.uint32), 8,
-                                 use_tpu=False, layout="ref")
-    else:
+def test_unported_decodes_raise(case, monkeypatch):
+    """Without the C++ host library an f32 reference-layout container needs
+    the device parse, which is not ported, where f64 ones are host-decoded
+    (trico_tpu/chunked.py:708-710); non-FP containers are refused."""
+    monkeypatch.setattr(trico_tpu.native, "available", lambda: False)
+    if case == "lz4":
         blob = jc.encode_lz4_chunked(np.zeros(64, np.uint8), use_tpu=False)
-    with pytest.raises(ValueError if case == "lz4" else NotImplementedError):
-        tc.decode_chunked(blob, device="cpu")
+        with pytest.raises(ValueError):
+            tc.decode_chunked(blob, device="cpu")
+        return
+    vals = np.arange(16, dtype=np.uint64 if case == "f64" else np.uint32)
+    blob = jc.encode_chunked(vals, 8, use_tpu=False, layout="ref")
+    if case == "ref":
+        with pytest.raises(NotImplementedError):
+            tc.decode_chunked(blob, device="cpu")
+    else:
+        np.testing.assert_array_equal(tc.decode_chunked(blob, device="cpu")[0], vals)
 
 
 def test_cuda_without_a_card_raises():

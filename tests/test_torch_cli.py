@@ -1,0 +1,134 @@
+"""``python -m trico_tpu_torch encode|decode`` held against trico_tpu's
+``encode --chunked`` run in process as a device host runs it
+(trico_tpu.chunked._tpu_available patched to True inside each test): the
+same archive bytes from the bunny STL and from a PLY with colors, uvs and
+normals, and geometry that comes back equal to the input."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import trico_tpu.chunked as jc
+import trico_tpu.native
+from trico_tpu import cli as jcli
+from trico_tpu.archive import ArchiveReader, StreamType
+from trico_tpu.io import ply, stl
+from trico_tpu_torch import cli
+
+REPO = Path(__file__).resolve().parents[1]
+
+pytestmark = pytest.mark.skipif(not trico_tpu.native.available(),
+                                reason="v1 archives here use the C++ host library")
+
+
+@pytest.fixture
+def device_host(monkeypatch):
+    monkeypatch.setattr(jc, "_tpu_available", lambda: True)
+
+
+@pytest.fixture
+def mesh_ply(tmp_path):
+    """A PLY whose vertices, normals, colors (alpha 0xFF) and per-triangle
+    uvs are smooth enough for every codec path to matter."""
+    r = np.random.default_rng(0)
+    n, m = 6000, 9000
+    t = np.linspace(0, 30, n)
+    v = np.stack([np.sin(t), np.cos(t), t / 10], axis=1).astype(np.float32)
+    nrm = (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+    q = (np.arange(n) // 16 % 256).astype(np.uint32)
+    col = 0xFF000000 | (q << 16) | (q << 8) | (255 - q)
+    tri = np.sort(r.integers(0, n, (m, 3)), axis=0).astype(np.uint32)
+    uv = np.repeat(np.linspace(0, 1, m, dtype=np.float32)[:, None], 6, axis=1)
+    src = tmp_path / "m.ply"
+    ply.write_ply(src, v, nrm, col, tri, uv)
+    return src, (v, nrm, col, tri, uv)
+
+
+@pytest.mark.parametrize("extra", [[], ["--fast"]])
+def test_stl_encode_matches_jax(tmp_path, bunny_path, device_host, extra):
+    ours, theirs = tmp_path / "ours.trc", tmp_path / "theirs.trc"
+    assert cli.main(["encode", "-i", str(bunny_path), "-o", str(ours),
+                     "--device", "cpu", *extra]) == 0
+    assert jcli.main(["encode", "-i", str(bunny_path), "-o", str(theirs),
+                      "--chunked", *extra]) == 0
+    assert ours.read_bytes() == theirs.read_bytes()
+    back = tmp_path / "back.stl"
+    assert cli.main(["decode", "-i", str(ours), "-o", str(back),
+                     "--device", "cpu"]) == 0
+    v0, t0 = stl.read_stl(bunny_path)
+    v1, t1 = stl.read_stl(back)
+    np.testing.assert_array_equal(v1.view(np.uint32), v0.view(np.uint32))
+    np.testing.assert_array_equal(t1, t0)
+
+
+def test_stladd_matches_jax(tmp_path, bunny_path, device_host):
+    ours, theirs = tmp_path / "ours.trc", tmp_path / "theirs.trc"
+    flags = ["-stladd", "normal", "-stladd", "uint16"]
+    cli.encoder_main(["-i", str(bunny_path), "-o", str(ours), "--device", "cpu",
+                      *flags])
+    jcli.encoder_main(["-i", str(bunny_path), "-o", str(theirs), "--chunked",
+                       *flags])
+    assert ours.read_bytes() == theirs.read_bytes()
+    kinds = [st.name for st, _ in ArchiveReader(ours.read_bytes()).streams()]
+    assert kinds == ["vertex_float", "triangle_uint32", "triangle_normal_float",
+                     "attribute_uint16"]
+
+
+def test_ply_encode_matches_jax(tmp_path, mesh_ply, device_host):
+    src, (v, nrm, col, tri, uv) = mesh_ply
+    ours, theirs = tmp_path / "ours.trc", tmp_path / "theirs.trc"
+    assert cli.encoder_main(["-i", str(src), "-o", str(ours), "--device", "cpu"]) == 0
+    assert jcli.encoder_main(["-i", str(src), "-o", str(theirs), "--chunked"]) == 0
+    assert ours.read_bytes() == theirs.read_bytes()
+    # the default output name, then the decode picks PLY by content
+    assert cli.encoder_main(["-i", str(src), "--device", "cpu"]) == 0
+    assert (tmp_path / "m.trc").read_bytes() == ours.read_bytes()
+    assert cli.decoder_main(["-i", str(tmp_path / "m.trc"), "--device", "cpu"]) == 0
+    m = ply.read_ply(tmp_path / "m.ply")
+    for got, want in ((m.vertices, v), (m.vertex_normals, nrm),
+                      (m.vertex_colors, col), (m.triangles, tri),
+                      (m.texcoords, uv)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_plyskip(tmp_path, mesh_ply):
+    src, (v, _, _, tri, _) = mesh_ply
+    trc = tmp_path / "skip.trc"
+    assert cli.encoder_main(["-i", str(src), "-o", str(trc), "--device", "cpu",
+                             "-plyskip", "normal", "-plyskip", "color",
+                             "-plyskip", "tex_coord"]) == 0
+    r = ArchiveReader(trc.read_bytes())
+    assert r.next_stream_type == StreamType.vertex_float
+    streams = list(r.streams())
+    assert [st.name for st, _ in streams] == ["vertex_float", "triangle_uint32"]
+    np.testing.assert_array_equal(streams[0][1], v)
+    np.testing.assert_array_equal(streams[1][1], tri)
+
+
+def test_decode_reads_v0_archives(tmp_path, bunny_path):
+    trc, back = tmp_path / "v0.trc", tmp_path / "back.stl"
+    assert jcli.encoder_main(["-i", str(bunny_path), "-o", str(trc)]) == 0
+    assert cli.decoder_main(["-i", str(trc), "-o", str(back), "--device", "cpu"]) == 0
+    np.testing.assert_array_equal(stl.read_stl(back)[0], stl.read_stl(bunny_path)[0])
+
+
+def test_usage_and_errors(tmp_path, capsys):
+    assert cli.main([]) == 0
+    assert cli.main(["frobnicate"]) == 1
+    bad = tmp_path / "m.obj"
+    bad.write_bytes(b"")
+    assert cli.encoder_main(["-i", str(bad), "--device", "cpu"]) == 1
+    with pytest.raises(SystemExit):
+        cli.encoder_main(["-i", str(bad)])  # --device is required
+
+
+def test_module_entry_point_runs(tmp_path, bunny_path):
+    out = tmp_path / "x.trc"
+    res = subprocess.run([sys.executable, "-m", "trico_tpu_torch", "encode",
+                          "-i", str(bunny_path), "-o", str(out), "--device", "cpu"],
+                         capture_output=True, text=True, cwd=REPO, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert ArchiveReader(out.read_bytes()).version == 1

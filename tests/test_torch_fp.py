@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import trico_tpu.native
 from trico_tpu.codec import fp_jax, fp_pallas, fp_ref, pack_funnel
 from trico_tpu_torch import _u32
 from trico_tpu_torch.codec import fp_cuda, fp_torch
@@ -184,9 +185,19 @@ def test_host_entry_points_without_full_chunks():
 
 
 @pytest.mark.parametrize("fn", ["encode_f32", "encode_f32_adaptive", "decode_f32"])
-def test_ref_layout_raises(fn):
+def test_ref_layout_raises(fn, monkeypatch):
+    """Without the C++ host library the reference layout's pack and parse
+    would be the device ones, which are not ported: encode_f32 and
+    decode_f32 name the ROADMAP item. The adaptive encode relays its v2
+    chunks out on the host and needs no library; it refuses an unknown
+    layout."""
+    monkeypatch.setattr(trico_tpu.native, "available", lambda: False)
     arg = np.zeros((1, fp_torch.f32_max_chunk_bytes(8)), np.uint8) \
         if fn == "decode_f32" else np.zeros(16, np.uint32)
+    if fn == "encode_f32_adaptive":
+        with pytest.raises(ValueError, match="unknown layout"):
+            fp_torch.encode_f32_adaptive(arg, 8, layout="v3", device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         getattr(fp_torch, fn)(arg, 8, layout="ref", device="cpu")
 

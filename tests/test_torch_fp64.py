@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import trico_tpu.native
 from trico_tpu.codec import fp64_jax, fp_pallas, fp_ref
 from trico_tpu_torch import _u64
 from trico_tpu_torch.codec import fp64_torch, fp_cuda
@@ -239,10 +240,12 @@ def test_host_entry_points_without_full_chunks():
 
 
 @pytest.mark.parametrize("fn", ["encode_f64", "encode_f64_adaptive", "decode_f64"])
-def test_ref_layout_raises(fn):
-    """encode_f64 / decode_f64 name the ROADMAP item of the reference
+def test_ref_layout_raises(fn, monkeypatch):
+    """Without the C++ host library, which packs and parses the reference
+    layout, encode_f64 / decode_f64 name the ROADMAP item of the reference
     layout; the adaptive encode has no reference layout in fp64_jax either."""
-    arg = np.zeros((1, fp64_torch.f64_max_chunk_bytes(8)), np.uint8) \
+    monkeypatch.setattr(trico_tpu.native, "available", lambda: False)
+    arg =np.zeros((1, fp64_torch.f64_max_chunk_bytes(8)), np.uint8) \
         if fn == "decode_f64" else np.zeros(16, np.uint64)
     err = ValueError if fn == "encode_f64_adaptive" else NotImplementedError
     with pytest.raises(err):

@@ -1,6 +1,7 @@
-"""trico_tpu_torch stays free of JAX: it imports and round-trips with JAX
-blocked, with and without the C++ host library, and no source of the port
-names JAX or the JAX-only modules of trico_tpu."""
+"""trico_tpu_torch stays free of JAX: it imports, round-trips FP, BP and LZ4
+containers, writes and reads a v1 archive of every stream kind and runs its
+CLI with JAX blocked, with and without the C++ host library, and no source
+of the port names JAX or the JAX-only modules of trico_tpu."""
 
 import re
 import subprocess
@@ -43,6 +44,57 @@ assert tt.chunked.F32_TPU_EXP == chunked.F32_TPU_EXP
 assert tt.chunked.DEFAULT_CHUNK_LEN == chunked.DEFAULT_CHUNK_LEN
 e1, e2 = tt.chunked.F32_TPU_EXP
 assert tt.fp_torch.hash_info(e1, e2) == fp_ref.compress(vals[:8], e1, e2)[0]
+
+idx = (np.arange(3 * 1024 + 40) // 2).astype(np.uint32)
+for words in (idx, idx.astype(np.uint64) << np.uint64(20)):
+    blob = tt.encode_bp_chunked(words, 1024, device="cpu")
+    assert np.array_equal(tt.decode_bp_chunked(blob, device="cpu"), words)
+plane = (np.arange(3 * 4096 + 5) // 9 % 7).astype(np.uint8)
+blob = tt.encode_lz4_chunked(plane, 4096, device="cpu")
+assert np.array_equal(tt.decode_lz4_chunked(blob), plane)
+
+n = 1500
+def f(width, dt, s):
+    t = [np.sin(np.linspace(0, 9 + k + s, n)) for k in range(width)]
+    return np.stack(t, axis=1).astype(dt)
+kinds = []
+for sfx, dt in (("", np.float32), ("_double", np.float64)):
+    kinds += [("write_vertices" + sfx, f(3, dt, 0)),
+              ("write_vertex_normals" + sfx, f(3, dt, 1)),
+              ("write_triangle_normals" + sfx, f(3, dt, 2)),
+              ("write_uv_per_vertex" + sfx, f(2, dt, 3)),
+              ("write_uv_per_triangle" + sfx, f(2, dt, 4))]
+tri = (np.arange(3 * n) // 2).astype(np.uint32).reshape(-1, 3)
+kinds += [("write_attributes_float", f(1, np.float32, 5)[:, 0]),
+          ("write_attributes_double", f(1, np.float64, 6)[:, 0]),
+          ("write_triangles", tri),
+          ("write_triangles_long", tri.astype(np.uint64)),
+          ("write_vertex_colors", (np.arange(n) // 7).astype(np.uint32) | np.uint32(0xFF000000)),
+          ("write_triangle_colors", (np.arange(n) % 5).astype(np.uint32)),
+          ("write_attributes_uint8", (np.arange(n) % 3).astype(np.uint8)),
+          ("write_attributes_uint16", np.arange(n, dtype=np.uint16)),
+          ("write_attributes_uint32", np.arange(n, dtype=np.uint32) * 977),
+          ("write_attributes_uint64", np.arange(n, dtype=np.uint64) << np.uint64(40))]
+# the reference layout of f32 chunks needs the host library's pack and parse
+for layout in ("tpu", "ref") if {native} else ("tpu",):
+    w = tt.ArchiveWriter(chunk_len=1024, layout=layout, device="cpu")
+    for method, arr in kinds:
+        getattr(w, method)(arr)
+    r = tt.ArchiveReader(w.tobytes(), device="cpu")
+    got = list(r.streams())
+    assert len(got) == len(kinds)
+    for (method, arr), (st, back) in zip(kinds, got):
+        assert np.array_equal(back.reshape(arr.shape), arr), (layout, method)
+
+import tempfile
+from trico_tpu.io import stl
+from trico_tpu_torch import cli
+bunny = {repo!r} + "/tests/data/StanfordBunny.stl"
+with tempfile.TemporaryDirectory() as d:
+    assert cli.main(["encode", "-i", bunny, "-o", d + "/b.trc", "--device", "cpu"]) == 0
+    assert cli.main(["decode", "-i", d + "/b.trc", "-o", d + "/b.stl", "--device", "cpu"]) == 0
+    for a, b in zip(stl.read_stl(bunny), stl.read_stl(d + "/b.stl")):
+        assert np.array_equal(a, b)
 assert sys.modules["jax"] is None
 print("ok")
 """
@@ -64,6 +116,9 @@ def test_sources_name_no_jax():
         # trico_tpu's pack_funnel is JAX code; the port has its own
         re.compile(r"^\s*from\s+trico_tpu\.codec(\.pack_funnel|\s+import"
                    r"[^\n]*\bpack_funnel\b)", re.M),
+        # trico_tpu's CLI imports its profiling hooks; the port has its own
+        re.compile(r"^\s*(from\s+trico_tpu(\.cli\b|\s+import[^\n]*\bcli\b)"
+                   r"|import\s+trico_tpu\.cli\b)", re.M),
     ]
     files = sorted((REPO / "trico_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 5
@@ -72,3 +127,7 @@ def test_sources_name_no_jax():
         assert not any(p.search(text) for p in patterns), f
     assert patterns[0].search("from trico_tpu.codec import fp_ref, fp_jax")
     assert patterns[1].search("from trico_tpu.codec import pack_funnel")
+    for line in ("from trico_tpu import cli", "from trico_tpu.cli import main",
+                 "import trico_tpu.cli"):
+        assert patterns[2].search(line), line
+    assert not patterns[2].search("from trico_tpu.io import ply, stl")

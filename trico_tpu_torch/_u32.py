@@ -3,10 +3,15 @@
 The port carries every u32 word as a ``torch.int32`` tensor holding the
 word's bits: torch has no CPU add, right shift or compare for
 ``torch.uint32``. XOR, AND, OR and ``==`` act on those bits unchanged.
-Arithmetic whose result depends on the sign bit runs in int64 on the
-widened word (0 .. 2^32-1), masked with ``MASK`` after each add, subtract
-or left shift, and is narrowed back to int32 bits, so nothing relies on
-signed overflow.
+So do two torch operations on int32 whose low 32 bits are the u32 answer:
+add and subtract wrap mod 2^32 in two's complement (as ``_u64`` relies on
+for int64), and ``<<`` shifts the word's unsigned bits, so bits shifted
+past bit 31 are lost and bit 31 is set as a u32 shift sets it. The port
+uses these where the word's bits are the result: the BP32 zigzag deltas
+and the ``logshift`` word. What reads a word as an unsigned number (a
+compare, a logical right shift, a sum that must not wrap) runs in int64 on
+the widened word (0 .. 2^32-1), masked with ``MASK``, and is narrowed back
+to int32 bits.
 """
 
 from __future__ import annotations

@@ -254,15 +254,29 @@ def _encode_host(values_u64: np.ndarray, chunk_len: int, device, encode):
     return out.cpu().numpy(), sizes.cpu().numpy().astype(np.int64), tail
 
 
+def _pack_ref(x, e1: int, e2: int):
+    """Reference-layout payloads of (C, L) int64 words: the device predictor,
+    then the host library's pack (fp64_jax.py:290-310)."""
+    fn = fp_torch._host_lib().tt_fp64_pack_chunks
+    e1, e2 = _norm_exponents(e1, e2)
+    L = x.shape[1]
+    out, sizes = fp_torch.pack_native(fn, *predict_f64_chunks(x, e1, e2), L,
+                                      e1, e2, f64_max_chunk_bytes(L))
+    return torch.from_numpy(out), torch.from_numpy(sizes)
+
+
 def encode_f64(values_u64: np.ndarray, chunk_len: int, e1: int = 20,
                e2: int = 20, layout: str = "tpu", *, device):
     """Encode a flat uint64 stream in chunks of ``chunk_len`` (rounded down
-    to even) on ``device``.
+    to even) on ``device``, in v2 chunks (``layout="tpu"``) or in the
+    reference layout (``"ref"``, packed by the C++ host library).
 
     Returns (payloads (C, B) uint8, sizes (C,) int64, tail_values); the tail
     is left for the caller's host codec."""
-    if layout != "tpu":
-        raise fp_torch._ref_layout_unported()
+    fp_torch._check_layout(layout)
+    if layout == "ref":
+        return _encode_host(values_u64, chunk_len, device,
+                            lambda x: _pack_ref(x, e1, e2))
     return _encode_host(values_u64, chunk_len, device,
                         lambda x: encode_f64_chunks_v2(x, e1, e2))
 
@@ -281,10 +295,17 @@ def encode_f64_adaptive(values_u64: np.ndarray, chunk_len: int,
 
 def decode_f64(payloads: np.ndarray, chunk_len: int, e1: int = 20,
                e2: int = 20, layout: str = "tpu", *, device) -> np.ndarray:
-    """Decode (C, B) padded v2 chunk payloads → flat uint64 values."""
-    if layout != "tpu":
-        raise fp_torch._ref_layout_unported()
+    """Decode (C, B) padded chunk payloads of one layout → flat uint64
+    values; reference-layout chunks are parsed by the C++ host library and
+    replayed on ``device`` (fp64_jax.py:355-375)."""
+    fp_torch._check_layout(layout)
     if len(payloads) == 0:
         return np.zeros(0, np.uint64)
+    if layout == "ref":
+        bc, xo = fp_torch.parse_native(fp_torch._host_lib().tt_fp64_parse_chunks,
+                                       payloads, chunk_len, np.uint64)
+        vals = replay_f64_chunks(torch.from_numpy(bc).to(device),
+                                 _u64.from_numpy(xo).to(device), e1, e2)
+        return _u64.to_numpy(vals).reshape(-1)
     p = torch.from_numpy(np.ascontiguousarray(payloads, np.uint8)).to(device)
     return _u64.to_numpy(decode_f64_chunks_v2(p, chunk_len, e1, e2)).reshape(-1)

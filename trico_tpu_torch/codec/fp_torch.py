@@ -27,6 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from trico_tpu import native
+
 from .. import _u32
 from . import fp_cuda
 from .fp_cuda import _norm_exponents
@@ -211,11 +213,17 @@ def encode_f32_chunks_v2_adaptive(values, candidates=F32_TPU_CANDIDATES):
 
 
 def _move_monotone(payload, shift, valid, pb, direction):
+    """Pack live (C, S) int32 (shift, payload) pairs into ``shift << pb |
+    payload`` words and move them. A live shift is below S, so the word
+    fits 32 bits. It is built in int32, where ``<<`` shifts the unsigned
+    bits (:mod:`trico_tpu_torch._u32`), so no int64 copy of the (C, S)
+    slots is made, and a word whose top bit is set (pb + ceil(log2 S) = 32)
+    keeps its bits."""
     S = payload.shape[1]
-    if pb + max(S - 1, 1).bit_length() > 32:
+    if pb + fp_cuda._nbits(S) > 32:
         raise ValueError("log-shift word overflow")
-    word = torch.where(valid, _u32.shl(shift, pb) | payload, 0).to(torch.int32)
-    return fp_cuda.logshift(word, pb, direction)
+    word = torch.where(valid, (shift.to(torch.int32) << pb) | payload, 0)
+    return fp_cuda.logshift(word.to(torch.int32), pb, direction)
 
 
 def _compact_monotone(payload, shift, valid, pb):
@@ -305,14 +313,60 @@ def relayout_f32_v2_to_v1(payload: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# host entry points: NumPy in, NumPy out
+# host entry points: NumPy in, NumPy out. layout="tpu" is v2 chunks, all on
+# the device; layout="ref" is reference-layout chunks, whose pack and parse
+# run in the C++ host library around the device predictor and replay
+# (fp_jax.py:1007-1025, 1071-1088).
 # ---------------------------------------------------------------------------
 
 
-def _ref_layout_unported():
-    return NotImplementedError(
-        'layout="ref" (device pack and parse of the reference layout) is '
-        "ROADMAP queue 1 item 8; this port encodes and decodes v2 chunks")
+def _check_layout(layout: str) -> None:
+    if layout not in ("tpu", "ref"):
+        raise ValueError(f"unknown layout {layout!r}")
+
+
+def _host_lib():
+    """The C++ host library, which packs and parses reference-layout chunks;
+    without it the reference layout needs the device pack and parse, which
+    are not ported."""
+    if not native.available():
+        raise NotImplementedError(
+            'layout="ref" without the C++ host library needs the device pack '
+            "and parse of the reference layout (ROADMAP queue 1 item 8)")
+    return native.get_lib()
+
+
+def pack_native(fn, bcode, res, L: int, e1: int, e2: int, B: int):
+    """Reference-layout payloads of (C, L) predicted codes and residuals
+    (device or CPU tensors), packed by the host library's ``fn``
+    (``tt_fp32_pack_chunks`` or ``tt_fp64_pack_chunks``) at normalised
+    exponents → ((C, B) uint8, (C,) int64 sizes)."""
+    bc = np.ascontiguousarray(bcode.cpu().numpy())
+    rs = np.ascontiguousarray(res.cpu().numpy())
+    C = len(bc)
+    if bc.dtype != np.uint8 or bc.shape != (C, L) or rs.shape != (C, L):
+        raise ValueError(f"pack_native: need (C, {L}) uint8 codes and residual "
+                         f"words, got {bc.dtype} {bc.shape}, {rs.shape}")
+    out = np.zeros((C, B), np.uint8)
+    sizes = np.zeros(C, np.int32)
+    if fn(native._ptr(bc), native._ptr(rs), C, L, e1, e2, native._ptr(out), B,
+          native._ptr(sizes)) != 0:
+        raise RuntimeError("native pack failed")
+    return out, sizes.astype(np.int64)
+
+
+def parse_native(fn, payloads: np.ndarray, L: int, word):
+    """(C, B) reference-layout payloads → ((C, L) uint8 bcodes, (C, L) xor
+    words of NumPy type ``word``), parsed by the host library's ``fn``
+    (``tt_fp32_parse_chunks`` or ``tt_fp64_parse_chunks``)."""
+    payloads = np.ascontiguousarray(payloads, np.uint8)
+    C, B = payloads.shape
+    bcodes = np.zeros((C, L), np.uint8)
+    xors = np.zeros((C, L), word)
+    if fn(native._ptr(payloads), C, B, L, native._ptr(bcodes),
+          native._ptr(xors)) != 0:
+        raise RuntimeError("native parse failed")
+    return bcodes, xors
 
 
 def _split(values_u32: np.ndarray, chunk_len: int):
@@ -328,13 +382,17 @@ def encode_f32(values_u32: np.ndarray, chunk_len: int, e1: int = 4,
 
     Returns (payloads (C, B) uint8, sizes (C,) int64, tail_values); the tail
     (n % chunk_len values) is left for the caller's host codec."""
-    if layout != "tpu":
-        raise _ref_layout_unported()
+    _check_layout(layout)
     C, chunks, tail = _split(values_u32, chunk_len)
     B = f32_max_chunk_bytes(chunk_len)
     if C == 0:
         return np.zeros((0, B), np.uint8), np.zeros(0, np.int64), tail
     x = _u32.from_numpy(chunks).to(device)
+    if layout == "ref":
+        fn = _host_lib().tt_fp32_pack_chunks
+        e1, e2 = _norm_exponents(e1, e2)
+        return (*pack_native(fn, *predict_f32_chunks(x, e1, e2), chunk_len,
+                             e1, e2, B), tail)
     out, sizes = encode_f32_chunks_v2(x, e1, e2)
     return out.cpu().numpy(), sizes.cpu().numpy().astype(np.int64), tail
 
@@ -343,9 +401,10 @@ def encode_f32_adaptive(values_u32: np.ndarray, chunk_len: int,
                         candidates=F32_TPU_CANDIDATES,
                         layout: str = "tpu", *, device):
     """Adaptive per-chunk exponent encode of a flat uint32 stream; see
-    :func:`encode_f32_chunks_v2_adaptive`. Returns as :func:`encode_f32`."""
-    if layout != "tpu":
-        raise _ref_layout_unported()
+    :func:`encode_f32_chunks_v2_adaptive`. Returns as :func:`encode_f32`.
+    ``layout="ref"`` relays the v2 chunks out to the reference layout on
+    the host (a byte permutation; the sizes do not change)."""
+    _check_layout(layout)
     chunk_len = (chunk_len // 8) * 8 or 8
     C, chunks, tail = _split(values_u32, chunk_len)
     B = f32_max_chunk_bytes(chunk_len)
@@ -353,15 +412,28 @@ def encode_f32_adaptive(values_u32: np.ndarray, chunk_len: int,
         return np.zeros((0, B), np.uint8), np.zeros(0, np.int64), tail
     x = _u32.from_numpy(chunks).to(device)
     out, sizes = encode_f32_chunks_v2_adaptive(x, tuple(candidates))
-    return out.cpu().numpy(), sizes.cpu().numpy().astype(np.int64), tail
+    out, sizes = out.cpu().numpy(), sizes.cpu().numpy().astype(np.int64)
+    if layout == "ref":
+        if native.available():
+            out = native.relayout_chunks(out, chunk_len, 32, to_v2=False)
+        else:
+            for c in range(C):
+                out[c, : sizes[c]] = relayout_f32_v2_to_v1(out[c, : sizes[c]])
+    return out, sizes, tail
 
 
 def decode_f32(payloads: np.ndarray, chunk_len: int, e1: int = 4,
                e2: int = 10, layout: str = "tpu", *, device) -> np.ndarray:
-    """Decode (C, B) padded v2 chunk payloads → flat uint32 values."""
-    if layout != "tpu":
-        raise _ref_layout_unported()
+    """Decode (C, B) padded chunk payloads of one layout → flat uint32
+    values."""
+    _check_layout(layout)
     if len(payloads) == 0:
         return np.zeros(0, np.uint32)
+    if layout == "ref":
+        bc, xo = parse_native(_host_lib().tt_fp32_parse_chunks, payloads,
+                              chunk_len, np.uint32)
+        vals = replay_f32_chunks(torch.from_numpy(bc).to(device),
+                                 _u32.from_numpy(xo).to(device), e1, e2)
+        return _u32.to_numpy(vals).reshape(-1)
     p = torch.from_numpy(np.ascontiguousarray(payloads, np.uint8)).to(device)
     return _u32.to_numpy(decode_f32_chunks_v2(p, chunk_len, e1, e2)).reshape(-1)
