@@ -28,8 +28,17 @@ Phases, each fatal on failure:
    replay (both widths) at more exponents on words with NaN, inf, zero,
    subnormal and negative patterns, f32 predict also at (14,14), whose
    128 KB of tables take a block of one warp, and ``fcm_multi_xors`` at
-   (2,6,8). Tolerance: exact equality of every word. Times of both from
-   CUDA events, and ``logshift``'s also at 65536 slots;
+   (2,6,8). ``replay`` and ``replay64`` besides at chunk lengths off every
+   grid of the kernel (8, 40, 4096 + 8, and for f64 4102 = 2 x 2051), one
+   chunk, chunk counts that leave the last block partly filled, G and T
+   named by the caller, exponents (0,0), (0,6), (4,10), (10,10) (2048 table
+   words) and inputs that are views one word into a larger tensor (rows not
+   16-byte aligned); each must also restore the words it was predicted
+   from. Tolerance: exact equality of every word. Times of both from CUDA
+   events, ``logshift``'s also at 65536 slots, the replays' beside the
+   one-thread-per-chunk kernel's that they replace, and each kernel's bound:
+   the larger of its bytes (inputs read once, outputs written once) over
+   3.35 TB/s and its integer operations over 67 TOP/s;
 4. drive the FP paths through ``encode_chunked`` / ``decode_chunked`` and
    ``fp_torch.encode_f32_adaptive``: the f32 bench stream fixed, ``"fast"``
    and ``optimize=True``; the f64 bench stream (bench.py:290-293) at
@@ -61,7 +70,9 @@ Phases, each fatal on failure:
    ``find_matches`` ms per 1 MiB block, from CUDA events;
 9. print the kernels line: each kernel's launches during phases 4-6 (each
    must be > 0, and ``logshift`` must launch in phase 5), its largest
-   difference from the plain version and both times.
+   difference from the plain version, both times and the bound
+   (``library_ms`` is null: no single PyTorch call computes any of the
+   seven functions).
 
 Every leg prints its peak device memory. The last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA card, or without the repository beside
@@ -82,20 +93,21 @@ import torch
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
-from trico_tpu.chunked import parse_validated_framing  # noqa: E402
-from trico_tpu.codec import bp_ref, fp_ref, transpose  # noqa: E402
-from trico_tpu.io.stl import compute_triangle_normals, read_stl  # noqa: E402
 from trico_tpu_torch import (ArchiveReader, ArchiveWriter, _u32,  # noqa: E402
                              _u64, chunked)
-from trico_tpu_torch.codec import (_build, bp_torch, fp64_torch,  # noqa: E402
-                                   fp_cuda, fp_torch, lz4_torch)
+from trico_tpu_torch.chunked import parse_validated_framing  # noqa: E402
+from trico_tpu_torch.codec import (_build, bp_ref, bp_torch,  # noqa: E402
+                                   fp64_torch, fp_cuda, fp_ref, fp_torch,
+                                   lz4_torch, transpose)
+from trico_tpu_torch.io.stl import (compute_triangle_normals,  # noqa: E402
+                                    read_stl)
 
 N_VALUES = 1 << 23  # bench.py's f32 stream: 8M values
 N_F64 = 1 << 24  # bench.py's f64 stream: 16M doubles
 CHUNK_LEN = 4096
 EXP = (4, 6)
 EXTRA_EXPS = ((0, 6), (0, 0), (4, 10), (10, 10))
-EXTRA_EXPS64 = ((0, 6), (0, 0), (4, 10), (10, 12))
+EXTRA_EXPS64 = ((0, 6), (0, 0), (4, 10), (10, 10), (10, 12))
 BIG_EXP = (14, 14)  # predict tables past 48 KB: one warp per block
 REPAIR_EXP = (16, 16)  # tables past any block: the sort predictor
 # an adaptive set with a 3-member e2 group: fcm_multi_xors gets e1s=(8,)
@@ -121,6 +133,19 @@ REPLACES = {
     "replay64": (f"{PALLAS}:440", []),
 }
 PLAIN = {name: getattr(fp_cuda, f"{name}_plain") for name in fp_cuda.KERNELS}
+# the replays' times as one thread per chunk, before their redesign (H100
+# 80GB HBM3 at 700 W, (2048, 4096) u32 and (4096, 4096) u64, (4,6))
+REPLAY_ONE_THREAD_MS = {"replay": 0.4863, "replay64": 0.8086}
+# chunk lengths off the replay kernel's grids (tile, 4-value vector, warp)
+REPLAY_ODD_LENS = {"replay": (8, 40, CHUNK_LEN + 8),
+                   "replay64": (2, 38, 2 * 2051)}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM: device memory rate
+INT_OPS_PER_S = 67e12  # H100 SXM: 32-bit rate outside the tensor cores
+# integer operations per element of the first argument (per output plane for
+# fcm_multi_xors): hash, table access, xor and select
+OPS_PER_ELEMENT = {"predict_xors": 16, "fcm_multi_xors": 8, "replay": 12,
+                   "logshift": 6, "pair_compact_or": 6, "predict64_xors": 20,
+                   "replay64": 16}
 
 
 class SmokeFailure(RuntimeError):
@@ -198,6 +223,50 @@ def max_abs_err(a, b) -> int:
         return max(max_abs_err(_u32.narrow(a >> 32), _u32.narrow(b >> 32)),
                    max_abs_err(_u32.narrow(a), _u32.narrow(b)))
     return int((_u32.widen(a) - _u32.widen(b)).abs().max().item())
+
+
+def bound_of(name: str, args, outs) -> tuple[float, str]:
+    """(bound_ms, "bytes" or "operations") of one call: every tensor argument
+    read once and every output written once at the card's memory rate, or
+    the call's integer operations at the card's 32-bit rate, whichever is
+    more."""
+    tensors = [a for a in args if torch.is_tensor(a)] + list(outs)
+    by_bytes = sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S
+    by_ops = (OPS_PER_ELEMENT[name] * args[0].numel() * len(outs)
+              / INT_OPS_PER_S)
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def offset_view(t: torch.Tensor) -> torch.Tensor:
+    """The same values as a contiguous view one element into a larger
+    tensor: its rows start off the 16-byte grid."""
+    big = torch.zeros(t.numel() + 3, dtype=t.dtype, device=t.device)
+    big[1 : 1 + t.numel()] = t.reshape(-1)
+    return big[1 : 1 + t.numel()].view(t.shape)
+
+
+def replay_shape_cases(name: str, words: torch.Tensor):
+    """Replay cases at shapes off the kernel's grids, cut from (C, L)
+    ``words``: ((bcodes, xors, e1, e2[, G, T]), the words to restore)."""
+    if name == "replay":
+        predict, codes = fp_cuda.predict_xors_plain, fp_torch._bcode_res_from_xors
+    else:
+        predict, codes = fp_cuda.predict64_xors_plain, fp64_torch._bcode_res_from_xors64
+    flat = words.reshape(-1)
+
+    def case(C, L, exp, *tune, view=False):
+        w = flat[: C * L].view(C, L).contiguous()
+        bc, res = codes(*predict(w, *exp))
+        if view:
+            bc, res = offset_view(bc), offset_view(res)
+        return (bc, res, *exp, *tune), w
+
+    short, mid, long = REPLAY_ODD_LENS[name]
+    return [case(1, short, EXP), case(1031, short, (0, 0)),
+            case(7, mid, (0, 6)), case(1031, mid, EXP, view=True),
+            case(13, mid, (4, 10), 8, 64),  # 8 chunks a block: 5 in the last
+            case(33, long, EXP, 32, 16), case(3, long, (10, 10), view=True),
+            case(64, long, EXP), case(1, CHUNK_LEN, EXP, view=True)]
 
 
 def record_calls(run):
@@ -322,6 +391,8 @@ def kernel_phase(x, x64, raw, raw64, tflat, lucy):
         bc, res = fp64_torch._bcode_res_from_xors64(
             *fp_cuda.predict64_xors_plain(mixed64, *e))
         extra["replay64"].append(((bc, res, *e), mixed64))
+    extra["replay"] += replay_shape_cases("replay", mixed)
+    extra["replay64"] += replay_shape_cases("replay64", mixed64)
     results = {}
     for name in fp_cuda.KERNELS:
         check(len(seen[name]) > 0, f"{name}: the main path never called it")
@@ -329,7 +400,9 @@ def kernel_phase(x, x64, raw, raw64, tflat, lucy):
         cases = [(args, None) for args in seen[name]] + extra[name]
         err = 0
         for i, (args, restores) in enumerate(cases):
-            got, want = kern(*args), plain_by_rows(plain, args)
+            # a replay case may name G and T, which only steer the kernel
+            got, want = kern(*args), plain_by_rows(
+                plain, args[:4] if name.startswith("replay") else args)
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
@@ -342,13 +415,21 @@ def kernel_phase(x, x64, raw, raw64, tflat, lucy):
                 check(torch.equal(got[0], restores),
                       f"{name} case {i}: values not restored")
         args0 = cases[0][0]
+        out0 = kern(*args0)
+        bound_ms, bound_by = bound_of(
+            name, args0, out0 if isinstance(out0, tuple) else (out0,))
         ms = time_ms(lambda: kern(*args0), 20)
         plain_ms = time_ms(lambda: plain(*args0),
                            1 if name.startswith("replay") else 3)
+        was = (f" (as one thread per chunk: {REPLAY_ONE_THREAD_MS[name]} ms)"
+               if name in REPLAY_ONE_THREAD_MS else "")
         print(f"kernel {name}: {len(cases)} cases exact; at "
-              f"{tuple(args0[0].shape)}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms", flush=True)
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+              f"{tuple(args0[0].shape)}: kernel {ms:.4f} ms{was}, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({100 * bound_ms / ms:.1f}% of it reached)", flush=True)
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None}
     # BP32 and BP64 of the whole stream: encode bytes (pb 8), decode slot ids
     # (pb 16), bytes (pb 8); each call was among the cases held above
     shapes = [tuple(args[0].shape) for args in bp_calls]
@@ -386,12 +467,17 @@ def container_chunks(blob) -> list:
 
 def round_trip(raw, what: str, *exps, optimize=False, v1_check=False) -> bytes:
     """encode_chunked then decode_chunked on the card, bit-exact."""
+    before = dict(fp_cuda.launches)
     t0 = time.perf_counter()
-    blob = chunked.encode_chunked(raw, CHUNK_LEN, *exps, optimize=optimize,
-                                  device="cuda")
+    blob = chunked.encode_chunked(raw, CHUNK_LEN, *exps, optimize=optimize)
     t1 = time.perf_counter()
-    back, bits = chunked.decode_chunked(blob, device="cuda")
+    mid = dict(fp_cuda.launches)
+    back, bits = chunked.decode_chunked(blob)
     t2 = time.perf_counter()
+    after = dict(fp_cuda.launches)
+
+    def launched(a, b):
+        return {k: b[k] - a[k] for k in fp_cuda.KERNELS if b[k] != a[k]}
     check(bits == 8 * raw.itemsize and back.dtype == raw.dtype
           and back.shape == raw.shape, f"{what}: decode_chunked shape/dtype")
     check(np.array_equal(back, raw), f"{what}: round trip")
@@ -407,7 +493,9 @@ def round_trip(raw, what: str, *exps, optimize=False, v1_check=False) -> bytes:
     print(f"main path {what}: {len(raw)} values -> {len(blob)} B (ratio "
           f"{raw.nbytes / len(blob):.4f}), encode_chunked {t1 - t0:.3f} s, "
           f"decode_chunked {t2 - t1:.3f} s (host clock, transfers and "
-          f"framing included); chunks by exponents {sorted(infos.items())}"
+          f"framing included); kernel launches of the encode call "
+          f"{launched(before, mid)}, of the decode call {launched(mid, after)}; "
+          f"chunks by exponents {sorted(infos.items())}"
           f"{'; 16 chunks equal fp_ref.compress' if v1_check else ''}",
           flush=True)
     return blob

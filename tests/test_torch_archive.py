@@ -10,13 +10,13 @@ import torch
 
 import trico_tpu.archive as ja
 import trico_tpu.chunked as jc
-import trico_tpu.native
 import trico_tpu_torch as tt
 from conftest import mesh_like_floats
 from trico_tpu.io.stl import read_stl
 
-pytestmark = pytest.mark.skipif(not trico_tpu.native.available(),
-                                reason="v1 archives here use the C++ host library")
+from torch_cases import align_native, require_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("align_native")
 
 
 @pytest.fixture
@@ -79,6 +79,8 @@ def _check_read(reader, streams) -> None:
 @pytest.mark.parametrize("layout", ["tpu", "ref"])
 @pytest.mark.parametrize("opt", [True, "fast"])
 def test_archive_matches_jax(case, layout, opt, device_host, request):
+    if layout == "ref":
+        require_native()  # the reference layout's pack and parse are C++
     if case == "bunny":
         verts, tris = read_stl(request.getfixturevalue("bunny_path"))
         streams = [("write_vertices", verts), ("write_triangles", tris)]

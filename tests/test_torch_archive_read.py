@@ -10,15 +10,13 @@ import pytest
 import corpus
 import trico_tpu.archive as ja
 import trico_tpu.chunked as jc
-import trico_tpu.native
 import trico_tpu_torch as tt
 from trico_tpu_torch.codec import lz4_torch
 
 from test_torch_archive import _check_read, _write, synthetic
-from torch_cases import recording
+from torch_cases import align_native, recording, require_native  # noqa: F401
 
-pytestmark = pytest.mark.skipif(not trico_tpu.native.available(),
-                                reason="v1 archives here use the C++ host library")
+pytestmark = pytest.mark.usefixtures("align_native")
 
 
 @pytest.fixture
@@ -30,6 +28,7 @@ def device_host(monkeypatch):
 def test_large_color_stream_runs_the_device_search(device_host):
     """2^20 + 4096 colors: three byte planes past one 1 MiB block each
     search on the device (the alpha plane is a fill container)."""
+    require_native()  # the emitter behind the device search is C++
     r = np.random.default_rng(3)
     n = (1 << 20) + 4096
     q = np.repeat(r.integers(0, 256, n // 64 + 1), 64)[:n].astype(np.uint32)
@@ -66,6 +65,8 @@ def test_port_reads_jax_archives(kind, monkeypatch):
     """v0 archives (native and pure-Python writers), v1 archives of a device
     host in both layouts, and the reference-layout v1 archives a CPU-only
     host writes (with LZ4 planes from the host matcher)."""
+    if "ref" in kind:
+        require_native()  # f32 reference-layout chunks parse in C++
     streams = synthetic(seed=1)
     if kind.startswith("v0"):
         w = ja.ArchiveWriter(use_native=kind == "v0")
@@ -83,6 +84,8 @@ def test_port_reads_jax_archives(kind, monkeypatch):
 
 @pytest.mark.parametrize("layout", ["tpu", "ref"])
 def test_jax_reads_port_archives(layout, device_host):
+    if layout == "ref":
+        require_native()  # the reference layout's pack is C++
     streams = synthetic(seed=2)
     data = _write(tt.ArchiveWriter(chunk_len=4096, layout=layout, device="cpu"),
                   streams)

@@ -12,13 +12,12 @@ import pytest
 import torch
 
 import trico_tpu.chunked as jc
-import trico_tpu.native
 import trico_tpu_torch.chunked as tc
 from trico_tpu.codec import bp_jax, bp_ref, fp_jax
 from trico_tpu_torch import _u32, _u64
 from trico_tpu_torch.codec import bp_torch, fp_cuda, fp_torch
 
-from torch_cases import recording
+from torch_cases import no_native, recording
 
 KINDS = ["index", "constant", "random", "wrap"]
 
@@ -139,7 +138,7 @@ def test_bp_container_without_native_library(monkeypatch):
     bytes do not change; decode of the tail takes bp_ref too."""
     v = _values("index", 2 * 1024 + 40, 32, seed=5)
     with_native = tc.encode_bp_chunked(v, 1024, device="cpu")
-    monkeypatch.setattr(trico_tpu.native, "available", lambda: False)
+    no_native(monkeypatch)
     assert tc.encode_bp_chunked(v, 1024, device="cpu") == with_native
     np.testing.assert_array_equal(tc.decode_bp_chunked(with_native, device="cpu"), v)
 

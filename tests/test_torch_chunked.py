@@ -11,12 +11,11 @@ import pytest
 import torch
 
 import trico_tpu.chunked as jc
-import trico_tpu.native
 from trico_tpu.codec import fp64_jax, fp_jax
 import trico_tpu_torch.chunked as tc
 from trico_tpu_torch.codec import fp64_torch
 
-from torch_cases import words, words64
+from torch_cases import no_native, words, words64
 
 
 def _stream(n, seed=0):
@@ -159,7 +158,7 @@ def test_host_fallbacks_without_native_library(monkeypatch):
     vals = _stream(2 * 1024 + 50, seed=1)
     with_native = tc.encode_chunked(vals, 1024, device="cpu")
     big = jc.encode_chunked(vals, 1024, 14, 18, use_tpu=False, layout="tpu")
-    monkeypatch.setattr(trico_tpu.native, "available", lambda: False)
+    no_native(monkeypatch)
     assert tc.encode_chunked(vals, 1024, device="cpu") == with_native
     np.testing.assert_array_equal(tc.decode_chunked(big, device="cpu")[0], vals)
 
@@ -169,7 +168,7 @@ def test_f64_host_fallbacks_without_native_library(monkeypatch):
     NumPy codecs (and the port's relayout) and the bytes do not change."""
     vals = _stream64(2 * 1024 + 50, seed=1)
     with_native = tc.encode_chunked(vals, 1024, device="cpu")
-    monkeypatch.setattr(trico_tpu.native, "available", lambda: False)
+    no_native(monkeypatch)
     assert tc.encode_chunked(vals, 1024, device="cpu") == with_native
     np.testing.assert_array_equal(tc.decode_chunked(with_native, device="cpu")[0],
                                   vals)
@@ -181,7 +180,7 @@ def test_unported_encodes_raise(case, monkeypatch):
     host library (its device pack), at fixed exponents; a reference-layout
     f64 adaptive chunk encode (none exists in fp64_jax either); an unknown
     layout. Float arrays are not raw bits."""
-    monkeypatch.setattr(trico_tpu.native, "available", lambda: False)
+    no_native(monkeypatch)
     if case == "f64":
         with pytest.raises(ValueError):
             fp64_torch.encode_f64_adaptive(np.zeros(16, np.uint64), 8,
@@ -200,7 +199,7 @@ def test_unported_decodes_raise(case, monkeypatch):
     """Without the C++ host library an f32 reference-layout container needs
     the device parse, which is not ported, where f64 ones are host-decoded
     (trico_tpu/chunked.py:708-710); non-FP containers are refused."""
-    monkeypatch.setattr(trico_tpu.native, "available", lambda: False)
+    no_native(monkeypatch)
     if case == "lz4":
         blob = jc.encode_lz4_chunked(np.zeros(64, np.uint8), use_tpu=False)
         with pytest.raises(ValueError):

@@ -11,17 +11,19 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import torch
+
 import trico_tpu.chunked as jc
-import trico_tpu.native
 from trico_tpu import cli as jcli
 from trico_tpu.archive import ArchiveReader, StreamType
 from trico_tpu.io import ply, stl
 from trico_tpu_torch import cli
 
+from torch_cases import align_native  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 
-pytestmark = pytest.mark.skipif(not trico_tpu.native.available(),
-                                reason="v1 archives here use the C++ host library")
+pytestmark = pytest.mark.usefixtures("align_native")
 
 
 @pytest.fixture
@@ -115,14 +117,18 @@ def test_decode_reads_v0_archives(tmp_path, bunny_path):
     np.testing.assert_array_equal(stl.read_stl(back)[0], stl.read_stl(bunny_path)[0])
 
 
-def test_usage_and_errors(tmp_path, capsys):
+def test_usage_and_errors(tmp_path, capsys, bunny_path, monkeypatch):
     assert cli.main([]) == 0
     assert cli.main(["frobnicate"]) == 1
     bad = tmp_path / "m.obj"
     bad.write_bytes(b"")
     assert cli.encoder_main(["-i", str(bad), "--device", "cpu"]) == 1
-    with pytest.raises(SystemExit):
-        cli.encoder_main(["-i", str(bad)])  # --device is required
+    # --device defaults to the card, and there is no carrying on without one
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.encoder_main(["-i", str(bunny_path), "-o", str(tmp_path / "x.trc")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.decoder_main(["-i", str(bad)])
 
 
 def test_module_entry_point_runs(tmp_path, bunny_path):

@@ -7,12 +7,11 @@ import numpy as np
 import pytest
 import torch
 
-import trico_tpu.native
 from trico_tpu.codec import fp_jax, fp_pallas, fp_ref, pack_funnel
 from trico_tpu_torch import _u32
 from trico_tpu_torch.codec import fp_cuda, fp_torch
 
-from torch_cases import recording, words
+from torch_cases import no_native, recording, words
 
 EXPS = [(4, 6), (4, 10), (0, 6), (0, 0)]
 
@@ -191,7 +190,7 @@ def test_ref_layout_raises(fn, monkeypatch):
     decode_f32 name the ROADMAP item. The adaptive encode relays its v2
     chunks out on the host and needs no library; it refuses an unknown
     layout."""
-    monkeypatch.setattr(trico_tpu.native, "available", lambda: False)
+    no_native(monkeypatch)
     arg = np.zeros((1, fp_torch.f32_max_chunk_bytes(8)), np.uint8) \
         if fn == "decode_f32" else np.zeros(16, np.uint32)
     if fn == "encode_f32_adaptive":

@@ -10,12 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-import trico_tpu.native
 from trico_tpu.codec import fp64_jax, fp_pallas, fp_ref
 from trico_tpu_torch import _u64
 from trico_tpu_torch.codec import fp64_torch, fp_cuda
 
-from torch_cases import recording, words64
+from torch_cases import no_native, recording, words64
 
 EXPS = [(4, 6), (4, 10), (0, 6), (0, 0), (10, 12), (20, 20)]
 LS = [1024, 2048]
@@ -244,7 +243,7 @@ def test_ref_layout_raises(fn, monkeypatch):
     """Without the C++ host library, which packs and parses the reference
     layout, encode_f64 / decode_f64 name the ROADMAP item of the reference
     layout; the adaptive encode has no reference layout in fp64_jax either."""
-    monkeypatch.setattr(trico_tpu.native, "available", lambda: False)
+    no_native(monkeypatch)
     arg =np.zeros((1, fp64_torch.f64_max_chunk_bytes(8)), np.uint8) \
         if fn == "decode_f64" else np.zeros(16, np.uint64)
     err = ValueError if fn == "encode_f64_adaptive" else NotImplementedError

@@ -12,10 +12,10 @@ import pytest
 import torch
 
 from trico_tpu.codec import fp_pallas, fp_ref
-from trico_tpu_torch import _u32
-from trico_tpu_torch.codec import fp_cuda, fp_torch
+from trico_tpu_torch import _u32, _u64
+from trico_tpu_torch.codec import fp64_torch, fp_cuda, fp_torch
 
-from torch_cases import recording, words
+from torch_cases import recording, words, words64
 
 EXPS = [(4, 6), (4, 10), (0, 6), (0, 0), (6, 0), (10, 10), (5, 7)]
 
@@ -199,3 +199,59 @@ def test_norm_exponents_match_reference():
     for e1 in range(0, 34):
         for e2 in (0, 1, 6, 7, 29, 30, 31, 33):
             assert fp_cuda._norm_exponents(e1, e2) == fp_pallas._norm_exponents(e1, e2)
+
+
+# The shapes chip_smoke.py gives the redesigned replay kernels on the card,
+# at a size the Pallas interpreter takes: L below, at and past a tile and off
+# the 4-value vector and 32-lane grids, one chunk and a chunk count that fills
+# no block, zero exponents, tables of 2048 words, and inputs that are views
+# at an odd word offset of a larger tensor (rows not 16-byte aligned).
+REPLAY_SHAPES = [(1, 8), (3, 40), (5, 264), (1, 1), (7, 13)]
+REPLAY_EXPS = [(4, 6), (0, 0), (0, 6), (4, 10), (10, 10)]
+
+
+def _offset_view(t: torch.Tensor) -> torch.Tensor:
+    """The same values as a contiguous view one element into a larger
+    tensor."""
+    big = torch.zeros(t.numel() + 3, dtype=t.dtype)
+    big[1 : 1 + t.numel()] = t.reshape(-1)
+    return big[1 : 1 + t.numel()].view(t.shape)
+
+
+@pytest.mark.parametrize("C,L", REPLAY_SHAPES)
+@pytest.mark.parametrize("e1,e2", REPLAY_EXPS)
+def test_replay_wrapper_shapes_match_pallas(C, L, e1, e2):
+    x = words(C, L, seed=C * 100 + L + e2)
+    bc, res = fp_torch.predict_f32_chunks(_u32.from_numpy(x), e1, e2)
+    want = fp_pallas.replay_pallas(jnp.asarray(bc.numpy()),
+                                   jnp.asarray(_np(res)), e1, e2, True)
+    np.testing.assert_array_equal(np.asarray(want), x)
+    for b, r in ((bc, res), (_offset_view(bc), _offset_view(res))):
+        assert b.is_contiguous() and r.is_contiguous()
+        np.testing.assert_array_equal(_np(fp_cuda.replay(b, r, e1, e2)), x)
+    # G and T only steer the kernel: a CPU tensor takes the plain version
+    np.testing.assert_array_equal(_np(fp_cuda.replay(bc, res, e1, e2, 2, 64)), x)
+
+
+@pytest.mark.parametrize("C,L", [(1, 2), (3, 6), (5, 38), (2, 258), (4, 1)])
+@pytest.mark.parametrize("e1,e2", REPLAY_EXPS)
+def test_replay64_wrapper_shapes_match_pallas(C, L, e1, e2):
+    x = words64(C, L, seed=C * 100 + L + e1)
+    bc, res = fp64_torch.predict_f64_chunks(_u64.from_numpy(x), e1, e2)
+    r64 = _u64.to_numpy(res)
+    vh, vl = fp_pallas.replay64_pallas(
+        jnp.asarray(bc.numpy()), jnp.asarray((r64 >> np.uint64(32)).astype(np.uint32)),
+        jnp.asarray(r64.astype(np.uint32)), e1, e2, True)
+    want = (np.asarray(vh).astype(np.uint64) << np.uint64(32)) | np.asarray(vl)
+    np.testing.assert_array_equal(want, x)
+    for b, r in ((bc, res), (_offset_view(bc), _offset_view(res))):
+        np.testing.assert_array_equal(_u64.to_numpy(fp_cuda.replay64(b, r, e1, e2)), x)
+
+
+def test_replay_needs_room_for_its_stages():
+    """A replay block holds its tiles beside its tables: tables that fill a
+    block's shared memory to the last word are refused before any launch."""
+    fp_cuda._need_fit("replay", (14, 14), 4, fp_cuda.REPLAY_STAGE_BYTES)
+    with pytest.raises(ValueError, match="shared memory"):
+        fp_cuda._need_fit("replay64", (14, 12), 8, 128 * 1024)
+    assert fp_cuda.tables_fit((14, 14)) and not fp_cuda.tables_fit((16, 16))

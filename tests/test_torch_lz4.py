@@ -11,15 +11,16 @@ import pytest
 import torch
 
 import trico_tpu.chunked as jc
-import trico_tpu.native
 import trico_tpu_torch.chunked as tc
 from trico_tpu.codec import lz4_jax
 from trico_tpu_torch.codec import lz4_torch
 
-from torch_cases import recording
+from torch_cases import (align_native, no_native, recording,  # noqa: F401
+                         require_native)
 
-pytestmark = pytest.mark.skipif(not trico_tpu.native.available(),
-                                reason="the LZ4 emitter is in the C++ host library")
+# the emitter behind the device match search is in the C++ host library: the
+# cases that reach it call require_native()
+pytestmark = pytest.mark.usefixtures("align_native")
 
 
 def _plane(kind: str, n: int, seed: int = 0) -> np.ndarray:
@@ -95,6 +96,7 @@ def test_lz4_container_matches_jax(kind, n):
 def test_lz4_container_at_the_default_block():
     """One plane of about 1.1 MiB at the production 1 MiB block: one block
     searched on the device, a tail the host matcher compresses."""
+    require_native()
     plane = _plane("index", (1 << 20) + (1 << 17), seed=1)
     with recording(lz4_torch, "find_matches") as calls:
         got = tc.encode_lz4_chunked(plane, device="cpu")
@@ -119,7 +121,7 @@ def test_lz4_container_without_native_library(monkeypatch):
     """Without the host library both packages compress every block with
     lz4_ref on the host."""
     plane = _plane("alphabet", 2 * 4096 + 5)
-    monkeypatch.setattr(trico_tpu.native, "available", lambda: False)
+    no_native(monkeypatch)
     with recording(lz4_torch, "find_matches") as calls:
         got = tc.encode_lz4_chunked(plane, 4096, device="cpu")
     assert calls == []
@@ -169,6 +171,7 @@ def test_encode_int_best_picks_both_ways():
 
 
 def test_compress_plane_needs_a_full_block():
+    require_native()
     plane = _plane("text", 5000)
     out = lz4_torch.compress_plane(plane, 4096, device="cpu")
     assert len(out) == 2

@@ -9,15 +9,15 @@ import numpy as np
 import pytest
 
 import trico_tpu.chunked as jc
-import trico_tpu.native
 import trico_tpu_torch.chunked as tc
 from trico_tpu_torch.codec import fp_cuda, fp_torch
 
-from torch_cases import recording, words, words64
+from torch_cases import (align_native, no_native, recording,  # noqa: F401
+                         require_native, words, words64)
 
-pytestmark = pytest.mark.skipif(not trico_tpu.native.available(),
-                                reason="the reference layout's pack and parse "
-                                       "are in the C++ host library")
+# the f32 reference layout's pack and parse of full chunks are in the C++
+# host library: the cases that reach them call require_native()
+pytestmark = pytest.mark.usefixtures("align_native")
 
 
 def _stream(n, seed=0):
@@ -32,6 +32,8 @@ def _stream64(n, seed=0):
                                  (100, 1024), (0, 1024)])
 @pytest.mark.parametrize("opt", [False, "fast", True])
 def test_ref_layout_f32_matches_jax(n, L, opt):
+    if n >= L:
+        require_native()
     vals = _stream(n, seed=n)
     got = tc.encode_chunked(vals, L, layout="ref", optimize=opt, device="cpu")
     assert got == jc.encode_chunked(vals, L, use_tpu=True, layout="ref",
@@ -63,6 +65,7 @@ def test_ref_layout_f64_matches_jax(n, L, opt):
 def test_ref_layout_f32_exponents(e1, e2):
     """(14,18) predicts by the sort and decodes on the host, as do tables
     past DEVICE_TABLE_WORDS; the others replay on the device."""
+    require_native()
     vals = _stream(2 * 1024 + 300, seed=e2)
     got = tc.encode_chunked(vals, 1024, e1, e2, layout="ref", device="cpu")
     assert got == jc.encode_chunked(vals, 1024, e1, e2, use_tpu=True, layout="ref")
@@ -74,6 +77,7 @@ def test_ref_layout_f32_exponents(e1, e2):
 @pytest.mark.parametrize("e1,e2", [(4, 6), (10, 10), (10, 12), (20, 20)])
 def test_ref_layout_f64_exponents(e1, e2):
     """Tables past DEVICE_TABLE_WORDS decode on the host."""
+    require_native()  # without it every f64 reference-layout chunk is host-coded
     vals = _stream64(2 * 1024 + 300, seed=e1)
     got = tc.encode_chunked(vals, 1024, e1, e2, layout="ref", device="cpu")
     assert got == jc.encode_chunked(vals, 1024, e1, e2, use_tpu=True, layout="ref")
@@ -87,6 +91,8 @@ def test_ref_layout_f64_exponents(e1, e2):
 def test_port_decodes_jax_host_ref_containers(dtype, opt):
     """Reference-layout containers from trico_tpu's host encoder, the
     archives a CPU-only machine writes."""
+    if dtype == np.uint32:
+        require_native()
     vals = (_stream if dtype == np.uint32 else _stream64)(4 * 1024 + 9, seed=2)
     blob = jc.encode_chunked(vals, 1024, use_tpu=False, layout="ref", optimize=opt)
     np.testing.assert_array_equal(tc.decode_chunked(blob, device="cpu")[0], vals)
@@ -98,7 +104,7 @@ def test_f32_ref_adaptive_relayout_without_native(monkeypatch):
     vals = _stream(3 * 1024 + 5, seed=4)
     with_native = tc.encode_chunked(vals, 1024, layout="ref", optimize=True,
                                     device="cpu")
-    monkeypatch.setattr(trico_tpu.native, "available", lambda: False)
+    no_native(monkeypatch)
     assert tc.encode_chunked(vals, 1024, layout="ref", optimize=True,
                              device="cpu") == with_native
 
@@ -108,7 +114,7 @@ def test_f64_ref_without_native_is_host_coded(monkeypatch, opt):
     vals = _stream64(3 * 1024 + 5, seed=6)
     with_native = tc.encode_chunked(vals, 1024, layout="ref", optimize=opt,
                                     device="cpu")
-    monkeypatch.setattr(trico_tpu.native, "available", lambda: False)
+    no_native(monkeypatch)
     with recording(fp_cuda, "predict64_xors") as calls:
         got = tc.encode_chunked(vals, 1024, layout="ref", optimize=opt,
                                 device="cpu")
@@ -124,9 +130,10 @@ def test_f32_ref_without_native_raises(monkeypatch):
     """Without the host library the f32 reference layout needs the device
     pack and parse, which are not ported: a short stream (no full chunk) is
     still host-coded, as in trico_tpu."""
+    require_native()  # to write the container that then fails to decode
     vals = _stream(2 * 1024, seed=8)
     blob = tc.encode_chunked(vals, 1024, layout="ref", device="cpu")
-    monkeypatch.setattr(trico_tpu.native, "available", lambda: False)
+    no_native(monkeypatch)
     with pytest.raises(NotImplementedError, match="item 8"):
         tc.encode_chunked(vals, 1024, layout="ref", device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):

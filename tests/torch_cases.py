@@ -5,7 +5,10 @@ from __future__ import annotations
 import contextlib
 
 import numpy as np
+import pytest
 
+import trico_tpu.native
+import trico_tpu_torch.native
 from conftest import mesh_like_floats
 
 SPECIAL = np.array([0x7FC00000, 0xFFC00000, 0x7F800000, 0xFF800000,
@@ -85,3 +88,27 @@ def recording(module, name: str):
         yield calls
     finally:
         setattr(module, name, real)
+
+
+def no_native(monkeypatch) -> None:
+    """Run the rest of the test as if no C++ host library were built, in
+    either package: both take their NumPy fallbacks."""
+    monkeypatch.setattr(trico_tpu_torch.native, "available", lambda: False)
+    monkeypatch.setattr(trico_tpu.native, "available", lambda: False)
+
+
+def require_native() -> None:
+    """Skip the calling test unless the C++ host libraries are built: for the
+    cases that have no NumPy fallback (the reference-layout pack and parse,
+    the LZ4 emitter behind the device match search)."""
+    if not (trico_tpu_torch.native.available() and trico_tpu.native.available()):
+        pytest.skip("needs the C++ host library (g++)")
+
+
+@pytest.fixture
+def align_native(monkeypatch):
+    """The two packages pick their host codec by whether their own C++
+    library is built. Where only one of the two built, run both without, so
+    that a parity test compares like with like."""
+    if trico_tpu.native.available() != trico_tpu_torch.native.available():
+        no_native(monkeypatch)

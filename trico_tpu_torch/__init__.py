@@ -6,7 +6,7 @@ inputs give the same bytes. Ported so far is every path of a single-device
 v1 mesh archive:
 
 * :mod:`trico_tpu_torch.archive` — ``ArchiveWriter`` / ``ArchiveReader`` (v1
-  substreams on a torch device, v0 on the shared host path);
+  substreams on a torch device, v0 on the host);
 * :mod:`trico_tpu_torch.cli` — ``python -m trico_tpu_torch encode|decode``;
 * :mod:`trico_tpu_torch.chunked` — the v1 containers: FP
   (``encode_chunked`` / ``decode_chunked``, both chunk layouts, every
@@ -21,26 +21,32 @@ v1 mesh archive:
 * :mod:`trico_tpu_torch.codec.pack_funnel` — f32 residual region packing;
 * :mod:`trico_tpu_torch.codec.fp_cuda` — the seven CUDA kernels (source in
   ``codec/csrc/``) that replace the nine Pallas kernels, each beside its
-  plain PyTorch version.
+  plain PyTorch version;
+* :mod:`trico_tpu_torch.native` — the C++ host library (tails, big-table
+  chunks, v0 archives, reference-layout pack and parse, LZ4 emit), with the
+  NumPy oracles ``codec.fp_ref``, ``bp_ref``, ``lz4_ref`` and
+  ``codec.transpose`` as its fallback;
+* :mod:`trico_tpu_torch.io` — the STL and PLY readers and writers.
 
-The package imports no JAX. It shares ``trico_tpu``'s host-only modules (the
-archive classes it extends, the container framing, the NumPy oracles, the
-mesh readers and the C++ host library), and every entry point takes an
-explicit ``device``.
+The package stands alone: it imports neither JAX nor anything of
+``trico_tpu``, and keeps its own copy of every host part. Every entry point
+runs on ``device="cuda"`` unless the caller asks for ``"cpu"``, and raises
+where there is no card.
 """
 
-from . import _u32, _u64, archive, chunked
+from . import _u32, _u64, archive, chunked, native
 from .archive import ArchiveReader, ArchiveWriter, StreamType
 from .chunked import (decode_bp_chunked, decode_chunked, decode_lz4_chunked,
                       encode_bp_chunked, encode_chunked, encode_int_best,
                       encode_lz4_chunked)
 from .codec import bp_torch, fp64_torch, fp_cuda, fp_torch, lz4_torch, pack_funnel
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 __all__ = ["ArchiveReader", "ArchiveWriter", "StreamType", "_u32", "_u64",
            "archive", "bp_torch", "chunked", "decode_bp_chunked",
            "decode_chunked", "decode_lz4_chunked", "encode_bp_chunked",
            "encode_chunked", "encode_int_best", "encode_lz4_chunked",
-           "fp64_torch", "fp_cuda", "fp_torch", "lz4_torch", "pack_funnel",
+           "fp64_torch", "fp_cuda", "fp_torch", "lz4_torch", "native",
+           "pack_funnel",
            "__version__"]

@@ -10,15 +10,28 @@ C++ host library's pack and parse). Integer streams go through
 (the LZ4 match search of byte-plane containers), and
 :func:`encode_int_best` picks the smaller, as ``trico_tpu`` does.
 
+The container format (the same as ``trico_tpu/chunked.py`` documents):
+
+``[u8 container_version=1][u8 flags][u32 LE chunk_len][u32 LE total_count]``
+``[u32 LE n_chunks][n_chunks x u32 LE chunk_size][concatenated chunk payloads]``
+
+flags bit 0: element width (0 = u32, 1 = u64); bit 1: chunked LZ4; bit 2:
+chunk layout (0 = reference, 1 = "tpu" v2, the group tags front-loaded);
+bit 3: BP32 / BP64; flags == 10 (bits 1 and 3): a "fill" container, the
+whole plane one repeated byte in 19 bytes. The final partial chunk is always
+host-coded in the reference layout.
+
 The framing (``parse_validated_framing``, ``rows_to_bytes``,
 ``bytes_to_rows``, ``validate_bp_chunk_headers``), the fill containers, the
-LZ4 decoder and the host codecs for tails and big-table chunks are
-``trico_tpu``'s own host code, which imports no JAX. Full chunks run on the
-``device`` the caller names: ``"cuda"`` launches the port's kernels and
-raises where there is no card; ``"cpu"`` runs their plain versions. Where
-``trico_tpu`` itself takes the host on a device host (no full chunk or LZ4
-block, f64 reference-layout chunks that are adaptive or lack the host
-library), so does the port.
+LZ4 decoder and the host codecs for tails and big-table chunks are the
+port's own copies of ``trico_tpu.chunked``'s host code, under the same names;
+they run the C++ host library (:mod:`.native`) when it is built and the NumPy
+oracles otherwise, with the same bytes. Full chunks run on ``device``:
+``"cuda"``, the default, launches the port's kernels and raises where there
+is no card; ``"cpu"`` runs their plain versions. Where ``trico_tpu`` itself
+takes the host on a device host (no full chunk or LZ4 block, f64
+reference-layout chunks that are adaptive or lack the host library), so does
+the port.
 """
 
 from __future__ import annotations
@@ -28,23 +41,15 @@ import struct
 import numpy as np
 import torch
 
-import trico_tpu.chunked as _jc
-from trico_tpu import native
-from trico_tpu.chunked import (DEFAULT_BP_CHUNK, DEFAULT_LZ4_BLOCK,
-                               _bp_host_decode, _host_fp_decode,
-                               _host_fp_encode, _host_fp_encode_best,
-                               bytes_to_rows, encode_fill,
-                               host_decode_full_chunks,
-                               parse_validated_framing, rows_to_bytes,
-                               validate_bp_chunk_headers)
-# the LZ4 container decodes on the host; re-exported beside its encoder
-from trico_tpu.chunked import decode_lz4_chunked  # noqa: F401
-from trico_tpu.codec import bp_ref, transpose
-
-from . import _u32, _u64
-from .codec import bp_torch, fp64_torch, fp_torch, lz4_torch
+from . import _u32, _u64, native
+from .codec import (bp_ref, bp_torch, fp64_torch, fp_ref, fp_torch, lz4_ref,
+                    lz4_torch, transpose)
 
 DEFAULT_CHUNK_LEN = 4096
+DEFAULT_BP_CHUNK = 16384  # values per BP chunk (64 KiB of u32)
+# 1 MiB blocks: LZ4's match window is 64 KiB, so independent blocks cost only
+# the first 64 KiB of warm-up each
+DEFAULT_LZ4_BLOCK = 1 << 20
 F32_TPU_EXP = (4, 6)
 F64_DEFAULT_EXP = (20, 20)  # the reference's f64 default (trico.c:396)
 F32_TPU_CANDIDATES = fp_torch.F32_TPU_CANDIDATES
@@ -60,7 +65,7 @@ _FLAG_TPU_LAYOUT = 4  # flags bit 2: v2 chunk layout
 _FLAG_BP = 8  # flags bit 3: BP32 / BP64 container
 
 
-def _resolve_device(device) -> torch.device:
+def _resolve_device(device="cuda") -> torch.device:
     """The torch device to run on; raises for a card that is not there."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -69,6 +74,187 @@ def _resolve_device(device) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+class ContainerHeader:
+    """Parsed v1 chunked-container header (the 14-byte fixed prefix)."""
+
+    __slots__ = ("bits", "kind", "layout", "chunk_len", "total", "n_chunks")
+
+    def __init__(self, bits, kind, layout, chunk_len, total, n_chunks):
+        self.bits = bits            # 32 | 64
+        self.kind = kind            # "fp" | "lz4" | "bp" | "fill"
+        self.layout = layout        # "ref" | "tpu"
+        self.chunk_len = chunk_len
+        self.total = total
+        self.n_chunks = n_chunks
+
+
+def parse_container_header(payload) -> ContainerHeader | None:
+    """Parse a v1 chunked-container prefix, or None if ``payload`` is not one.
+
+    This is the one place that interprets the flags byte: dispatchers route
+    on the parsed fields, not on raw payload bytes."""
+    buf = memoryview(payload)
+    if len(buf) < 14 or buf[0] != 1:
+        return None
+    flags = buf[1]
+    chunk_len, total, n_chunks = struct.unpack_from("<III", buf, 2)
+    if flags == _FLAG_LZ4 | _FLAG_BP:
+        # bits 1+3 together = "fill": one repeated byte for the whole plane
+        return ContainerHeader(bits=32, kind="fill", layout="ref",
+                               chunk_len=chunk_len, total=total,
+                               n_chunks=n_chunks)
+    if flags & ~15 or (flags & _FLAG_LZ4 and flags & _FLAG_BP):
+        return None  # unknown flag bits / contradictory kind: not ours
+    return ContainerHeader(
+        bits=64 if flags & _FLAG_F64 else 32,
+        kind="bp" if flags & _FLAG_BP else ("lz4" if flags & _FLAG_LZ4 else "fp"),
+        layout="tpu" if flags & _FLAG_TPU_LAYOUT else "ref",
+        chunk_len=chunk_len, total=total, n_chunks=n_chunks)
+
+
+def parse_validated_framing(data: bytes) -> tuple[ContainerHeader, tuple, int]:
+    """Parse and bounds-validate a v1 container's framing from untrusted
+    bytes → ``(header, sizes, payload_offset)``, or raise ``ValueError``.
+
+    The single place every decoder gets its chunk sizes from, so a crafted
+    container can never drive out-of-bounds reads or writes in the native
+    row movers. Checks: fixed prefix present, version 1, a nonzero chunk
+    length, the size table and the payload bytes inside the buffer, and the
+    chunk count consistent with the declared total (an undersized count
+    would leave ``np.empty`` garbage in the decoded tail)."""
+    if len(data) < 14:
+        raise ValueError("truncated chunked container")
+    ver, flags, chunk_len, total, n_chunks = struct.unpack_from("<BBIII", data, 0)
+    if ver != 1:
+        raise ValueError(f"unsupported chunked container version {ver}")
+    hdr = parse_container_header(data)
+    if hdr is None:
+        raise ValueError("corrupt chunked container flags")
+    if chunk_len == 0:
+        raise ValueError("corrupt chunked container: zero chunk length")
+    off = 14
+    if off + 4 * n_chunks > len(data):
+        raise ValueError("truncated chunked container")
+    sizes = struct.unpack_from(f"<{n_chunks}I", data, off)
+    off += 4 * n_chunks
+    if off + sum(sizes) > len(data):
+        raise ValueError("truncated chunked container")
+    expected = (total + chunk_len - 1) // chunk_len
+    # legacy LZ4 empty-stream containers carry one empty block for total=0
+    ok = (n_chunks == expected or
+          (hdr.kind == "lz4" and total == 0 and n_chunks <= 1))
+    if not ok:
+        raise ValueError("corrupt chunked container: chunk count does not "
+                         "match declared element total")
+    return hdr, sizes, off
+
+
+def rows_to_bytes(mat: np.ndarray, sizes) -> np.ndarray:
+    """Concatenate the first ``sizes[c]`` bytes of every row of a padded
+    (C, B) payload matrix into one contiguous uint8 array: a threaded native
+    memcpy walk, or a NumPy masked gather without the host library."""
+    mat = np.ascontiguousarray(mat, np.uint8)
+    sizes = np.asarray(sizes, np.int64)
+    if native.available():
+        lib = native.get_lib()
+        dst_off = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+        out = np.empty(int(sizes.sum()), np.uint8)
+        lib.tt_rows_to_bytes(native._ptr(mat), mat.shape[0], mat.shape[1],
+                             native._ptr(sizes), native._ptr(dst_off),
+                             native._ptr(out))
+        return out
+    mask = np.arange(mat.shape[1], dtype=np.int64)[None, :] < sizes[:, None]
+    return mat[mask]  # row-major boolean gather == concatenation in order
+
+
+def bytes_to_rows(buf: np.ndarray, sizes, B: int) -> np.ndarray:
+    """Inverse of :func:`rows_to_bytes`: scatter concatenated payloads into a
+    zero-padded (C, B) matrix (row c gets ``sizes[c]`` bytes).
+
+    ``sizes`` come from untrusted container framing, so they are validated
+    here: a row size above ``B`` or a total other than ``len(buf)`` would
+    make the native ``tt_bytes_to_rows`` copy past its row or its source."""
+    sizes = np.asarray(sizes, np.int64)
+    buf = np.ascontiguousarray(buf, np.uint8)
+    if len(sizes) and (sizes.min() < 0 or sizes.max() > B):
+        raise ValueError("corrupt container framing: chunk size exceeds "
+                         "the maximum payload bound")
+    if int(sizes.sum()) != len(buf):
+        raise ValueError("corrupt container framing: payload bytes do not "
+                         "match declared chunk sizes")
+    if native.available():
+        lib = native.get_lib()
+        src_off = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+        mat = np.empty((len(sizes), B), np.uint8)
+        lib.tt_bytes_to_rows(native._ptr(buf), native._ptr(src_off),
+                             native._ptr(sizes), len(sizes), B,
+                             native._ptr(mat))
+        return mat
+    mat = np.zeros((len(sizes), B), np.uint8)
+    mask = np.arange(B, dtype=np.int64)[None, :] < sizes[:, None]
+    mat[mask] = buf
+    return mat
+
+
+def _payload_count(buf: np.ndarray, bits: int) -> int:
+    """A chunk payload's value count, rounded up to its tag group."""
+    n = int.from_bytes(buf[1:5].tobytes(), "big")
+    group = 8 if bits == 32 else 2
+    return ((n + group - 1) // group) * group
+
+
+def _host_fp_encode(vals, e1, e2):
+    if native.available():
+        return native.fp_encode(vals, e1, e2)
+    return fp_ref.compress(vals, e1, e2)
+
+
+def _host_fp_decode(payload, bits):
+    if native.available():
+        return native.fp_decode(payload, bits)
+    return fp_ref.decompress_f32(payload) if bits == 32 else fp_ref.decompress_f64(payload)
+
+
+def _host_fp_encode_best(vals, candidates) -> bytes:
+    """Host encode with the smallest payload over the candidate exponents
+    (the first strictly smaller wins: the device argmin's tie rule)."""
+    best = None
+    for e1, e2 in candidates:
+        p = _host_fp_encode(vals, e1, e2)
+        if best is None or len(p) < len(best):
+            best = p
+    return best
+
+
+def host_decode_full_chunks(mat: np.ndarray, sizes_arr, idx, chunk_len: int,
+                            bits: int, layout: str) -> np.ndarray:
+    """Host decode of the full chunks ``mat[idx]`` → (len(idx), chunk_len)
+    raw words: the threaded native decoder when built, the NumPy oracle per
+    chunk otherwise. ``sizes_arr`` aligns with ``mat`` rows; "tpu"-layout
+    payloads are relaid out to the reference chunk layout first (a byte
+    permutation, sizes unchanged)."""
+    B = mat.shape[1]
+    if native.available():
+        sub = mat[idx]
+        if layout == "tpu":
+            sub = native.relayout_chunks(sub, chunk_len, bits, to_v2=False)
+        return native.fp_decode_blocks(
+            sub.reshape(-1),
+            np.arange(len(idx), dtype=np.int64) * B,
+            np.asarray(sizes_arr, np.int64)[idx],
+            np.full(len(idx), chunk_len, np.int64), bits,
+        ).reshape(len(idx), chunk_len)
+    relayout = (fp_torch.relayout_f32_v2_to_v1 if bits == 32
+                else fp64_torch.relayout_f64_v2_to_v1)
+    rows = []
+    for c in idx:
+        p1 = mat[c, : sizes_arr[c]]
+        if layout == "tpu":
+            p1 = relayout(p1)
+        rows.append(_host_fp_decode(p1, bits))
+    return np.stack(rows)
 
 
 def _frame(flags: int, chunk_len: int, total: int, sizes, body) -> bytes:
@@ -92,7 +278,7 @@ def _rows_body(mat: np.ndarray, sizes) -> tuple[list, list]:
 def encode_chunked(values: np.ndarray, chunk_len: int = DEFAULT_CHUNK_LEN,
                    e1: int | None = None, e2: int | None = None,
                    layout: str = "tpu", optimize: bool | str = False, *,
-                   device) -> bytes:
+                   device="cuda") -> bytes:
     """Encode a uint32 (f32) or uint64 (f64) raw-bits stream into a v1
     chunked FP container whose full chunks are encoded on ``device``.
 
@@ -104,7 +290,8 @@ def encode_chunked(values: np.ndarray, chunk_len: int = DEFAULT_CHUNK_LEN,
     ``layout="ref"`` reference-layout chunks (packed by the C++ host
     library; without it, f32 raises ``NotImplementedError`` and f64 is
     host-coded, as in ``trico_tpu``). The tail chunk is host-coded, in the
-    reference layout, with the same choice."""
+    reference layout, with the same choice. ``device`` is ``"cuda"`` unless
+    the caller asks for ``"cpu"``."""
     dev = _resolve_device(device)
     if values.dtype == np.uint32:
         exp, group = F32_TPU_EXP, 8
@@ -148,22 +335,7 @@ def encode_chunked(values: np.ndarray, chunk_len: int = DEFAULT_CHUNK_LEN,
     return _frame(flags, chunk_len, n, chunk_sizes, body)
 
 
-def _host_decode_full(mat: np.ndarray, sizes, idx, chunk_len: int,
-                      bits: int, layout: str) -> np.ndarray:
-    """Host decode of full chunks ``mat[idx]`` → (len(idx), chunk_len):
-    ``trico_tpu.chunked.host_decode_full_chunks`` (threaded C++ when the
-    host library is built, the NumPy oracle per chunk otherwise); v2 chunks
-    without the library take the port's own relayout first (trico_tpu's
-    NumPy relayout lives in its JAX modules)."""
-    if native.available() or layout == "ref":
-        return host_decode_full_chunks(mat, sizes, idx, chunk_len, bits, layout)
-    relayout = (fp_torch.relayout_f32_v2_to_v1 if bits == 32
-                else fp64_torch.relayout_f64_v2_to_v1)
-    return np.stack([_host_fp_decode(relayout(mat[c, : sizes[c]]), bits)
-                     for c in idx])
-
-
-def decode_chunked(data, *, device) -> tuple[np.ndarray, int]:
+def decode_chunked(data, *, device="cuda") -> tuple[np.ndarray, int]:
     """Decode a v1 FP chunked container, either chunk layout → (uint32 or
     uint64 array, bits). Full chunks decode on ``device``, grouped by their
     hash_info byte; chunks whose tables exceed ``DEVICE_TABLE_WORDS`` and
@@ -199,8 +371,8 @@ def decode_chunked(data, *, device) -> tuple[np.ndarray, int]:
             idx = np.nonzero(mat[:, 0] == info)[0]
             e1, e2 = fp_torch.exponents(int(info))
             if (1 << e1) + (1 << e2) > DEVICE_TABLE_WORDS:
-                rows[idx] = _host_decode_full(mat, sizes, idx, chunk_len, bits,
-                                              layout)
+                rows[idx] = host_decode_full_chunks(mat, sizes, idx,
+                                                    chunk_len, bits, layout)
             else:
                 rows[idx] = decode(mat[idx], chunk_len, e1, e2, layout=layout,
                                    device=dev).reshape(len(idx), chunk_len)
@@ -215,12 +387,22 @@ def decode_chunked(data, *, device) -> tuple[np.ndarray, int]:
 # ---------------------------------------------------------------------------
 
 
+def _host_bp_payloads(values: np.ndarray, chunk_len: int) -> list[bytes]:
+    """The host BP coding of a stream, one payload per chunk."""
+    if not len(values):
+        return []
+    if native.available():
+        return native.bp_encode_blocks(values, chunk_len)
+    return [bp_ref.encode_chunk(values[s : s + chunk_len])
+            for s in range(0, len(values), chunk_len)]
+
+
 def encode_bp_chunked(values: np.ndarray, chunk_len: int = DEFAULT_BP_CHUNK,
-                      *, device) -> bytes:
+                      *, device="cuda") -> bytes:
     """BP container of a flat uint32 or uint64 stream: bit-plane-packed
-    zigzag deltas in independent chunks (format: ``trico_tpu/codec/
-    bp_ref.py``). ``chunk_len`` is capped at 8192 for u64 and rounded down
-    to a multiple of 32. The full chunks are encoded on ``device``, the tail
+    zigzag deltas in independent chunks (format: :mod:`.codec.bp_ref`).
+    ``chunk_len`` is capped at 8192 for u64 and rounded down to a multiple
+    of 32. The full chunks are encoded on ``device``, the tail
     chunk on the host; a stream with no full chunk is host-coded, as in
     ``trico_tpu``."""
     dev = _resolve_device(device)
@@ -233,8 +415,10 @@ def encode_bp_chunked(values: np.ndarray, chunk_len: int = DEFAULT_BP_CHUNK,
     chunk_len = (chunk_len // 32) * 32 or 32
     n = len(values)
     C = n // chunk_len
+    flags = _FLAG_BP | (_FLAG_F64 if eb == 8 else 0)
     if C == 0:
-        return _jc.encode_bp_chunked(values, chunk_len, use_tpu=False)
+        body = _host_bp_payloads(values, chunk_len)
+        return _frame(flags, chunk_len, n, [len(p) for p in body], body)
     full = values[: C * chunk_len].reshape(C, chunk_len)
     if eb == 4:
         mat, sizes = bp_torch.encode_bp32_chunks(_u32.from_numpy(full).to(dev))
@@ -243,15 +427,59 @@ def encode_bp_chunked(values: np.ndarray, chunk_len: int = DEFAULT_BP_CHUNK,
     chunk_sizes, body = _rows_body(mat.cpu().numpy(), sizes.cpu().numpy())
     tail = values[C * chunk_len :]
     if len(tail):
-        tp = (native.bp_encode_blocks(tail, chunk_len)[0] if native.available()
-              else bp_ref.encode_chunk(tail))
+        tp = _host_bp_payloads(tail, chunk_len)[0]
         chunk_sizes.append(len(tp))
         body.append(tp)
-    return _frame(_FLAG_BP | (_FLAG_F64 if eb == 8 else 0), chunk_len, n,
-                  chunk_sizes, body)
+    return _frame(flags, chunk_len, n, chunk_sizes, body)
 
 
-def decode_bp_chunked(data, *, device) -> np.ndarray:
+def validate_bp_chunk_headers(mat: np.ndarray, sizes: np.ndarray,
+                              chunk_len: int, width_bits: int) -> None:
+    """Validate the per-chunk BP width headers of padded full-chunk rows
+    before their payloads go to the device.
+
+    The host decoders reject ``w > width_bits`` and truncated plane payloads,
+    but the device bit-plane parse would feed corrupt widths as negative
+    displacements into the monotone compaction and return garbage. So the
+    native checks are made here first: every width ≤ ``width_bits`` and each
+    chunk's declared payload size exactly ``n_groups + 4*sum(w)`` (BP64
+    planes are 32-bit words too)."""
+    n_groups = chunk_len // 32
+    widths = mat[:, :n_groups].astype(np.int64)
+    if widths.size and int(widths.max()) > width_bits:
+        raise ValueError("corrupt BP32 chunk: width exceeds element bits")
+    if np.any(n_groups + 4 * widths.sum(axis=1) != sizes):
+        raise ValueError("corrupt BP32 chunk: payload size does not match "
+                         "width header")
+
+
+def _bp_host_decode(payload, n, eb):
+    if native.available():
+        return native.bp_decode_blocks(payload, [0], [len(payload)], [n], eb)
+    return bp_ref.decode_chunk(payload, n, eb * 8)
+
+
+def _host_bp_decode_all(buf, hdr, sizes, off) -> np.ndarray:
+    """Host decode of every chunk of a BP container."""
+    chunk_len, total, n_chunks = hdr.chunk_len, hdr.total, hdr.n_chunks
+    eb = hdr.bits // 8
+    dt = np.uint32 if eb == 4 else np.uint64
+    if n_chunks == 0 or total == 0:
+        return np.zeros(total, dt)
+    counts = np.minimum(chunk_len,
+                        total - chunk_len * np.arange(n_chunks, dtype=np.int64))
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64) + off
+    if native.available():
+        return native.bp_decode_blocks(buf, offsets[:-1],
+                                       np.asarray(sizes, np.int64), counts, eb)
+    out = np.empty(total, dt)
+    for c in range(n_chunks):
+        out[c * chunk_len : c * chunk_len + counts[c]] = bp_ref.decode_chunk(
+            buf[offsets[c] : offsets[c + 1]], int(counts[c]), eb * 8)
+    return out
+
+
+def decode_bp_chunked(data, *, device="cuda") -> np.ndarray:
     """Decode a BP container → flat uint32 or uint64 array. The full chunks
     decode on ``device`` after their width headers are validated; the tail
     on the host. Containers the device path cannot take (no full chunk, a
@@ -265,10 +493,10 @@ def decode_bp_chunked(data, *, device) -> np.ndarray:
     chunk_len, total, n_chunks = hdr.chunk_len, hdr.total, hdr.n_chunks
     eb = hdr.bits // 8
     n_full = n_chunks - 1 if total % chunk_len else n_chunks
+    buf = np.frombuffer(data, np.uint8)
     if (total == 0 or n_full == 0 or chunk_len % 32
             or (eb == 8 and chunk_len > bp_torch.BP64_MAX_CHUNK)):
-        return _jc.decode_bp_chunked(data, use_tpu=False)
-    buf = np.frombuffer(data, np.uint8)
+        return _host_bp_decode_all(buf, hdr, sizes, off)
     offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64) + off
     full_sizes = np.asarray(sizes[:n_full], np.int64)
     if eb == 4:
@@ -294,8 +522,35 @@ def decode_bp_chunked(data, *, device) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def encode_fill(value: int, total: int) -> bytes:
+    """A "fill" container: ``total`` copies of one byte in 19 bytes."""
+    return _frame(_FLAG_LZ4 | _FLAG_BP, total, total, [1], [bytes([value])])
+
+
+def decode_fill(data) -> np.ndarray:
+    data = bytes(data)
+    hdr, sizes, off = parse_validated_framing(data)
+    if hdr.kind != "fill":
+        raise ValueError("not a fill container")
+    if sizes != (1,) or hdr.chunk_len != hdr.total:
+        raise ValueError("corrupt fill container")
+    return np.full(hdr.total, data[off], np.uint8)
+
+
+def _host_lz4_payloads(plane: np.ndarray, block_len: int) -> list[bytes]:
+    """The host LZ4 coding of a byte plane, one payload per block (an empty
+    plane is one empty block)."""
+    n = len(plane)
+    if native.available() and n:
+        return native.lz4_compress_blocks(plane, block_len)
+    comp = (native.lz4_compress if native.available()
+            else lambda d: lz4_ref.compress(bytes(d)))
+    return [comp(plane[i : i + block_len])
+            for i in range(0, max(n, 1), block_len)]
+
+
 def encode_lz4_chunked(plane: np.ndarray, block_len: int = DEFAULT_LZ4_BLOCK,
-                       *, device) -> bytes:
+                       *, device="cuda") -> bytes:
     """Chunked-LZ4 container of a byte plane: independent LZ4 blocks of
     ``block_len`` bytes. With the C++ host library and at least one full
     block, the match search of the full blocks runs on ``device`` and the
@@ -304,14 +559,41 @@ def encode_lz4_chunked(plane: np.ndarray, block_len: int = DEFAULT_LZ4_BLOCK,
     dev = _resolve_device(device)
     plane = np.ascontiguousarray(plane, dtype=np.uint8).reshape(-1)
     n = len(plane)
-    if not (native.available() and n >= block_len):
-        return _jc.encode_lz4_chunked(plane, block_len, use_tpu=False)
-    payloads = lz4_torch.compress_plane(plane, block_len, device=dev)
+    if native.available() and n >= block_len:
+        payloads = lz4_torch.compress_plane(plane, block_len, device=dev)
+    else:
+        payloads = _host_lz4_payloads(plane, block_len)
     return _frame(_FLAG_LZ4, block_len, n, [len(p) for p in payloads], payloads)
 
 
+def decode_lz4_chunked(data) -> np.ndarray:
+    """Decode a chunked-LZ4 (or fill) container → the byte plane, on the
+    host: independent blocks across the native library's threads, or the
+    pure-Python decoder block by block."""
+    data = bytes(data)
+    hdr, sizes, off = parse_validated_framing(data)
+    if hdr.kind == "fill":
+        return decode_fill(data)
+    if hdr.kind != "lz4":
+        raise ValueError("not a chunked LZ4 container")
+    block_len, total, n_blocks = hdr.chunk_len, hdr.total, hdr.n_chunks
+    dst_sizes = np.minimum(
+        block_len, total - block_len * np.arange(n_blocks, dtype=np.int64))
+    if native.available():
+        src_off = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64) + off
+        return native.lz4_decompress_blocks(data, src_off, np.asarray(sizes), dst_sizes)
+    out = np.empty(total, np.uint8)
+    pos = off
+    for i in range(n_blocks):
+        size = int(dst_sizes[i])
+        out[i * block_len : i * block_len + size] = np.frombuffer(
+            lz4_ref.decompress(data[pos : pos + sizes[i]], size), np.uint8)
+        pos += sizes[i]
+    return out
+
+
 def encode_int_best(arr: np.ndarray, block_len: int | None = None, *,
-                    device) -> list[bytes]:
+                    device="cuda") -> list[bytes]:
     """Integer stream → the smaller of LZ4 byte planes and one BP container,
     as the stream's ``itemsize`` substream payloads (the BP form pads with
     empty BP placeholder containers). Constant byte planes are 19-byte fill

@@ -2,17 +2,18 @@
 
 Counterpart of ``trico_tpu/cli.py``'s ``--chunked`` encode and its decode:
 
-    python -m trico_tpu_torch encode -i mesh.stl|mesh.ply [-o out.trc] --device cuda
-    python -m trico_tpu_torch decode -i in.trc [-o out.stl|out.ply] --device cuda
+    python -m trico_tpu_torch encode -i mesh.stl|mesh.ply [-o out.trc] [--device cuda|cpu]
+    python -m trico_tpu_torch decode -i in.trc [-o out.stl|out.ply] [--device cuda|cpu]
 
 ``encode`` writes a version-1 archive (chunks of ``--chunk-len`` values,
 default 4096; adaptive exponents, or the small-table set with ``--fast``;
 BP or LZ4 integer streams, whichever is smaller) whose substreams are coded
-on ``--device``; the bytes equal ``trico_tpu.cli encode --chunked`` on a
-device host. ``decode`` reads any archive, v0 or v1, and writes STL or PLY
-as ``trico_tpu``'s decoder does. The mesh readers and writers are
-``trico_tpu.io``'s. ``trico_tpu``'s ``--backend`` and ``--profile`` options
-are not carried over.
+on ``--device`` (the card unless ``cpu`` is asked for); the bytes equal
+``trico_tpu.cli encode --chunked`` on a device host. ``decode`` reads any
+archive, v0 or v1, and writes STL or PLY as ``trico_tpu``'s decoder does.
+The mesh readers and writers are
+:mod:`trico_tpu_torch.io`'s. ``trico_tpu``'s ``--backend`` and ``--profile``
+options are not carried over.
 """
 
 from __future__ import annotations
@@ -23,16 +24,15 @@ from pathlib import Path
 
 import numpy as np
 
-from trico_tpu.io import ply, stl
-
 from .archive import ArchiveReader, ArchiveWriter, StreamType
 from .chunked import DEFAULT_CHUNK_LEN
+from .io import ply, stl
 
 
 def _device_arg(ap: argparse.ArgumentParser) -> None:
-    ap.add_argument("--device", required=True,
-                    help='torch device for the codecs: "cuda" (raises without '
-                         'a card) or "cpu"')
+    ap.add_argument("--device", default="cuda",
+                    help='torch device for the codecs: "cuda" (the default; '
+                         'raises without a card) or "cpu"')
 
 
 def encoder_main(argv=None) -> int:
@@ -156,8 +156,8 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m trico_tpu_torch {encode|decode} [options]\n"
-              "       encode -i mesh.{stl,ply} [-o out.trc] --device cuda|cpu\n"
-              "       decode -i in.trc [-o out.{stl,ply}] --device cuda|cpu",
+              "       encode -i mesh.{stl,ply} [-o out.trc] [--device cuda|cpu]\n"
+              "       decode -i in.trc [-o out.{stl,ply}] [--device cuda|cpu]",
               file=sys.stderr if argv else sys.stdout)
         return 1 if argv else 0
     cmd, rest = argv[0], argv[1:]

@@ -36,8 +36,8 @@ _SIGNATURES = {
         "tt_predict_xors": [_P, _P, _P, _I, _I, _I, _I, _P],
         "tt_predict64_xors": [_P, _P, _P, _I, _I, _I, _I, _P],
         "tt_fcm_multi_xors": [_P, _P, _I, _I, _I, ctypes.POINTER(_I), _P],
-        "tt_replay": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "tt_replay64": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "tt_replay": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "tt_replay64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "tt_logshift": [_P, _P, _LL, _I, _I, _I, _I, _P],
         "tt_pair_compact_or": [_P, _P, _P, _LL, _I, _I, _P],
     },

@@ -26,6 +26,8 @@ constexpr unsigned kFull = 0xffffffffu;
 // Largest dynamic shared memory one block may opt into on an H100.
 constexpr int kMaxSmem = 232448;
 constexpr int kDefaultSmem = 49152;
+// Shared memory of one H100 SM, which its resident blocks divide.
+constexpr int kSmSmem = 233472;
 // Exponents one fcm_multi launch takes (fp_cuda.MAX_FCM).
 constexpr int kMaxFcm = 8;
 
@@ -202,54 +204,275 @@ __global__ void fcm_multi_kernel(const uint32_t* __restrict__ values,
 // _replay64_kernel (fp_pallas.py:440).
 //
 // Decode feeds each value back into the next keys, so a chunk is one
-// sequential chain; one thread walks one chunk. A bcode above fcm_max (4 for
-// f32, 8 for f64: the word's byte count) takes the DFCM prediction. Its two
-// tables live in shared memory, interleaved across the block's threads (word
-// idx of thread tid at idx * nt + tid) so that lanes reading the same idx hit
-// distinct banks.
+// sequential chain: per value an xor, a shift, an address, a shared-memory
+// store and a dependent shared-memory load (for a DFCM value a subtraction
+// and an addition more). A bcode above fcm_max (4 for f32, 8 for f64: the
+// word's byte count) takes the DFCM prediction.
 //
-// Bound on the H100: the dependent chain of one shared-memory write, read and
-// a few integer ops per value, with only C threads in flight (2048 f32 chunks
-// or 4096 f64 chunks of 4096 values at the bench shapes, a fraction of one
-// thread per core). The design keeps the chain out of device memory; the
-// block width is chosen in launch_replay to spread the chunks over every SM.
+// Bound on the H100: the latency of that chain times L, as long as (a) the
+// chain touches only shared memory and registers, (b) nothing else runs in
+// the chain's instruction stream and (c) a warp scheduler is not asked for
+// more instructions per step than the chain takes cycles. The design:
+//  * A block is two warps and holds G chunks (G = 1: a warp per chunk;
+//    G = 32: a lane per chunk; launch_replay picks G so that every warp
+//    scheduler of the card has about one walking warp). Lanes 0..G-1 of the
+//    walking warp each walk one chain; a chain instruction issues once for
+//    G chunks.
+//  * The copying warp moves the chunks through shared memory in tiles of T
+//    values, three stages deep: while the chains walk tile t it stores tile
+//    t - 1 to device memory with coalesced stores and fetches tile t + 1 of
+//    `xors` and `bcodes` with coalesced cp.async (16, 8 or 4 bytes wide, as
+//    the row's address allows; plain byte copies for what is left). One
+//    __syncthreads per tile hands the stages on. A chain writes its values
+//    over the tile's xors. Device memory sees each byte once, in full
+//    sectors, and the chain's warp issues nothing but the chain.
+//  * The chain reads and writes its tile 16 bytes at a time, the next four
+//    values fetched before the current four are walked, and addresses its
+//    tables by their shared-memory address (key scaled and added in one
+//    instruction).
+// Rows of neighbouring chunks are 16 bytes past a multiple of 128 apart in
+// shared memory, so that up to 8 walking lanes hit distinct banks.
 // ---------------------------------------------------------------------------
+__device__ __forceinline__ void cp_async(unsigned dst, const void* src,
+                                         int bytes) {
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+                 "l"(src)
+                 : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(dst),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Shared-memory accesses by 32-bit shared address.
+__device__ __forceinline__ uint32_t lds(unsigned a, uint32_t) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ uint64_t lds(unsigned a, uint64_t) {
+  uint64_t v;
+  asm volatile("ld.shared.u64 %0, [%1];" : "=l"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ void sts(unsigned a, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(a), "r"(v) : "memory");
+}
+__device__ __forceinline__ void sts(unsigned a, uint64_t v) {
+  asm volatile("st.shared.u64 [%0], %1;" ::"r"(a), "l"(v) : "memory");
+}
+__device__ __forceinline__ void sts_byte(unsigned a, uint32_t v) {
+  asm volatile("st.shared.u8 [%0], %1;" ::"r"(a), "r"(v) : "memory");
+}
+
+// Four values of a tile: 16 bytes of u32 words or 32 of u64 words.
+__device__ __forceinline__ void lds4(unsigned a, uint32_t (&q)[4]) {
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(q[0]), "=r"(q[1]), "=r"(q[2]), "=r"(q[3])
+               : "r"(a)
+               : "memory");
+}
+__device__ __forceinline__ void lds4(unsigned a, uint64_t (&q)[4]) {
+  asm volatile("ld.shared.v2.u64 {%0, %1}, [%2];"
+               : "=l"(q[0]), "=l"(q[1])
+               : "r"(a)
+               : "memory");
+  asm volatile("ld.shared.v2.u64 {%0, %1}, [%2];"
+               : "=l"(q[2]), "=l"(q[3])
+               : "r"(a + 16)
+               : "memory");
+}
+__device__ __forceinline__ void sts4(unsigned a, const uint32_t (&q)[4]) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(a), "r"(q[0]),
+               "r"(q[1]), "r"(q[2]), "r"(q[3])
+               : "memory");
+}
+__device__ __forceinline__ void sts4(unsigned a, const uint64_t (&q)[4]) {
+  asm volatile("st.shared.v2.u64 [%0], {%1, %2};" ::"r"(a), "l"(q[0]),
+               "l"(q[1])
+               : "memory");
+  asm volatile("st.shared.v2.u64 [%0], {%1, %2};" ::"r"(a + 16), "l"(q[2]),
+               "l"(q[3])
+               : "memory");
+}
+
+// The warp copies nbytes from src (device memory, any alignment) to the
+// shared address dst (16-byte aligned): asynchronous pieces as wide as src's
+// address allows, then plain byte copies for the rest.
+template <int width>
+__device__ __forceinline__ int stage_pieces(unsigned dst,
+                                            const unsigned char* src,
+                                            int nbytes, int lane) {
+  const int n = nbytes / width;
+  for (int k = lane; k < n; k += 32)
+    cp_async(dst + k * width, src + k * width, width);
+  return n * width;
+}
+
+__device__ __forceinline__ void stage_bytes(unsigned dst,
+                                            const unsigned char* src,
+                                            int nbytes, int lane) {
+  const unsigned long long a = (unsigned long long)src;
+  int done = 0;
+  if ((a & 15) == 0) done = stage_pieces<16>(dst, src, nbytes, lane);
+  else if ((a & 7) == 0) done = stage_pieces<8>(dst, src, nbytes, lane);
+  else if ((a & 3) == 0) done = stage_pieces<4>(dst, src, nbytes, lane);
+  for (int k = done + lane; k < nbytes; k += 32) sts_byte(dst + k, src[k]);
+}
+
+constexpr int kReplayStages = 3;
+
+// Shared memory of one replay block (G chunks, tiles of T values), in
+// bytes: the tables, then kReplayStages stages, each the G word rows and
+// then the G bcode rows of one tile.
 template <typename W>
-__global__ void replay_kernel(const uint8_t* __restrict__ bcodes,
-                              const W* __restrict__ xors, W* __restrict__ out,
-                              int C, int L, int e1, int e2) {
+struct ReplayLayout {
+  int words;      // table words per chunk
+  int row_words;  // bytes between two chunks' word rows
+  int row_codes;  // bytes between two chunks' bcode rows
+  __host__ __device__ ReplayLayout(int e1, int e2, int T)
+      : words((1 << e1) + (1 << e2)),
+        row_words(T * (int)sizeof(W) + 16),
+        row_codes(T + 16) {}
+  __host__ __device__ long long tables(int G) const {
+    return (((long long)G * words * (long long)sizeof(W)) + 15) / 16 * 16;
+  }
+  __host__ __device__ long long stage(int G) const {
+    return (long long)G * (row_words + row_codes);
+  }
+  __host__ __device__ long long total(int G) const {
+    return tables(G) + kReplayStages * stage(G);
+  }
+};
+
+// kZero: one of the exponents is 0, whose key stays 0 (a shift by the whole
+// word is undefined, so that path masks instead).
+template <typename W, bool kZero>
+__global__ void __launch_bounds__(64)
+replay_kernel(const uint8_t* __restrict__ bcodes, const W* __restrict__ xors,
+              W* __restrict__ out, int C, int L, int e1, int e2, int G, int T) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kBits = 8 * (int)sizeof(W);
-  constexpr int kFcmMax = (int)sizeof(W);
-  W* smem = reinterpret_cast<W*>(smem_raw);
-  const int nt = blockDim.x;
-  const int tid = threadIdx.x;
-  const int T1 = 1 << e1, T2 = 1 << e2;
-  for (int k = tid; k < (T1 + T2) * nt; k += nt) smem[k] = W(0);
-  __syncthreads();
-  const long long c = (long long)blockIdx.x * nt + tid;
-  if (c >= C) return;
-  W* t1 = smem + tid;
-  W* t2 = smem + (size_t)T1 * nt + tid;
-  const uint8_t* bc = bcodes + c * L;
-  const W* xr = xors + c * L;
-  W* o = out + c * L;
+  constexpr int kW = (int)sizeof(W);
+  constexpr uint32_t kFcmMax = (uint32_t)sizeof(W);
+  const int lane = threadIdx.x & 31;
+  const bool walker = threadIdx.x < 32;  // warp 0 walks, warp 1 copies
+  const long long c0 = (long long)blockIdx.x * G;
+  const int g_count = (int)(C - c0 < G ? C - c0 : G);  // chunks of this block
+  const ReplayLayout<W> lay(e1, e2, T);
+  const unsigned smem = (unsigned)__cvta_generic_to_shared(smem_raw);
+  const unsigned stage0 = smem + (unsigned)lay.tables(G);
+  const unsigned stage_size = (unsigned)lay.stage(G);
+  const unsigned codes_at = (unsigned)G * lay.row_words;  // within a stage
+  const int n_tiles = (L + T - 1) / T;
+
+  if (!walker) {
+    // fetch tile t of every chunk into stage t % kReplayStages
+    auto fetch = [&](int t) {
+      const int n = L - t * T < T ? L - t * T : T;
+      const unsigned st = stage0 + (t % kReplayStages) * stage_size;
+      for (int g = 0; g < g_count; ++g) {
+        const long long at = (c0 + g) * L + (long long)t * T;
+        stage_bytes(st + g * lay.row_words,
+                    reinterpret_cast<const unsigned char*>(xors + at), n * kW,
+                    lane);
+        stage_bytes(st + codes_at + g * lay.row_codes, bcodes + at, n, lane);
+      }
+    };
+    fetch(0);
+    cp_async_wait_all();
+    __syncthreads();  // tile 0 and the zeroed tables are in place
+    for (int t = 0; t <= n_tiles; ++t) {
+      if (t + 1 < n_tiles) fetch(t + 1);
+      if (t >= 1) {  // tile t - 1 is walked: store it
+        const int u = t - 1;
+        const int n = L - u * T < T ? L - u * T : T;
+        const unsigned st = stage0 + (u % kReplayStages) * stage_size;
+        for (int g = 0; g < g_count; ++g) {
+          W* o = out + (c0 + g) * L + (long long)u * T;
+          const unsigned x = st + g * lay.row_words;
+          for (int i = lane; i < n; i += 32) o[i] = lds(x + i * kW, W(0));
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();  // tile t is walked, tile t + 1 has landed
+    }
+    return;
+  }
+
+  // the walking warp: zero the tables, then one chain per lane
+  for (int k = lane; k < g_count * lay.words; k += 32)
+    sts(smem + k * kW, W(0));
+  const unsigned t1 = smem + (unsigned)lane * lay.words * kW;
+  const unsigned t2 = t1 + (kW << e1);
+  const uint32_t m1 = (uint32_t)((1ull << e1) - 1);
   const uint32_t m2 = (uint32_t)((1ull << e2) - 1);
+  const int s1 = e1 ? kBits - e1 : 0, s2 = e2 ? kBits - e2 : 0;
   const int sh2 = e2 >> 1;
-  uint32_t h1 = 0u, h2 = 0u;
+  unsigned a1 = t1, a2 = t2;  // addresses of the entries at keys h1 and h2
+  uint32_t h2 = 0u;
   W pred1 = W(0), pred2 = W(0), last = W(0);
-  for (int i = 0; i < L; ++i) {
-    const W pred = bc[i] > kFcmMax ? last + pred2 : pred1;
-    const W v = xr[i] ^ pred;
-    o[i] = v;
-    t1[(size_t)h1 * nt] = v;
-    if (e1) h1 = (uint32_t)(v >> (kBits - e1));
-    pred1 = t1[(size_t)h1 * nt];
+  // one step of the chain: xor word and bcode in, value out
+  auto step = [&](W xv, uint32_t code) -> W {
+    const W pred = code > kFcmMax ? last + pred2 : pred1;
+    const W v = xv ^ pred;
+    sts(a1, v);
+    const uint32_t h1 =
+        kZero ? ((uint32_t)(v >> s1) & m1) : (uint32_t)(v >> s1);
+    a1 = t1 + h1 * kW;
+    pred1 = lds(a1, W(0));
     const W stride = v - last;
-    t2[(size_t)h2 * nt] = stride;
-    if (e2) h2 = ((h2 << sh2) ^ (uint32_t)(stride >> (kBits - e2))) & m2;
-    pred2 = t2[(size_t)h2 * nt];
+    sts(a2, stride);
+    // (h2 << sh2) & m2 does not wait for the stride; the stride's top e2
+    // bits are below 2^e2 already
+    const uint32_t carry = (h2 << sh2) & m2;
+    h2 = carry ^ (kZero ? ((uint32_t)(stride >> s2) & m2)
+                        : (uint32_t)(stride >> s2));
+    a2 = t2 + h2 * kW;
+    pred2 = lds(a2, W(0));
     last = v;
+    return v;
+  };
+  __syncthreads();
+  for (int t = 0; t <= n_tiles; ++t) {
+    if (t < n_tiles && lane < g_count) {
+      const int n = L - t * T < T ? L - t * T : T;
+      const unsigned st = stage0 + (t % kReplayStages) * stage_size;
+      const unsigned x = st + lane * lay.row_words;
+      const unsigned bc = st + codes_at + lane * lay.row_codes;
+      // four values at a time, the next four fetched first; past the last
+      // group that fetch reads the row's padding (and, for u64, the start of
+      // what follows it in the stage), which nothing uses
+      W q[4], nq[4];
+      uint32_t codes = lds(bc, uint32_t(0)), ncodes;
+      lds4(x, q);
+      int i = 0;
+      for (; i + 4 <= n; i += 4) {
+        lds4(x + (i + 4) * kW, nq);
+        ncodes = lds(bc + i + 4, uint32_t(0));
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          q[k] = step(q[k], (codes >> (8 * k)) & 255u);
+        sts4(x + i * kW, q);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) q[k] = nq[k];
+        codes = ncodes;
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        if (i + k < n)
+          sts(x + (i + k) * kW, step(q[k], (codes >> (8 * k)) & 255u));
+    }
+    __syncthreads();
   }
 }
 
@@ -347,27 +570,48 @@ int launch_predict(const void* values, void* xor1, void* xor2, int C, int L,
   return (int)cudaGetLastError();
 }
 
+// Chunks per block (G) and values per tile (T) of a replay launch; 0 =
+// choose. G: about one walking warp for each of the card's 4 * SMs warp
+// schedulers, so that a step's instructions never queue behind another
+// warp's, a power of two in 1..32, fewer when the tables leave no room.
+// T: 256 values, halved while the blocks of one SM's share do not fit its
+// shared memory together (every chunk is resident at once), or L is less.
 template <typename W>
 int launch_replay(const void* bcodes, const void* xors, void* out, int C,
-                  int L, int e1, int e2, void* stream) {
-  const long long per_thread =
-      ((1ll << e1) + (1ll << e2)) * (long long)sizeof(W);
-  if (per_thread > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const long long cap = kMaxSmem / per_thread;  // what shared memory allows
-  long long w = (C + sm_count() - 1) / sm_count();  // >= one block per SM
-  w = w > 32 ? 32 : w;
-  w = w > cap ? cap : w;
-  w = w < 1 ? 1 : w;
-  const long long smem = per_thread * w;
+                  int L, int e1, int e2, int G, int T, void* stream) {
+  if (G < 0 || G > 32 || T < 0 || (T & 15)) return (int)cudaErrorInvalidValue;
+  const bool auto_g = G == 0, auto_t = T == 0;
+  const int sms = sm_count();
+  if (auto_g) {
+    G = 1;
+    while (G < 32 && (long long)C > 4ll * sms * G) G *= 2;
+  }
+  if (auto_t) {
+    T = 256;
+    while (T >= 2 * L && T > 16) T /= 2;
+  }
+  for (;;) {
+    const long long need = ReplayLayout<W>(e1, e2, T).total(G);
+    const long long blocks = ((long long)C + G - 1) / G;
+    const long long per_sm = (blocks + sms - 1) / sms;
+    // an SM's 228 KB, less the 1 KB the system keeps for each block
+    const long long share = kSmSmem / (per_sm > 32 ? 32 : per_sm) - 1024;
+    if (need <= kMaxSmem && (need <= share || !auto_t || T <= 64)) break;
+    if (auto_t && T > 32) T /= 2;
+    else if (auto_g && G > 1) G /= 2;
+    else return (int)cudaErrorInvalidValue;
+  }
+  const long long smem = ReplayLayout<W>(e1, e2, T).total(G);
+  const bool zero = e1 == 0 || e2 == 0;
+  auto kernel = zero ? replay_kernel<W, true> : replay_kernel<W, false>;
   if (smem > kDefaultSmem) {
     cudaError_t e = cudaFuncSetAttribute(
-        replay_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int blocks = (int)((C + w - 1) / w);
-  replay_kernel<W><<<blocks, (int)w, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)bcodes, (const W*)xors, (W*)out, C, L, e1, e2);
+  const int blocks = (C + G - 1) / G;
+  kernel<<<blocks, 64, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)bcodes, (const W*)xors, (W*)out, C, L, e1, e2, G, T);
   return (int)cudaGetLastError();
 }
 
@@ -411,16 +655,20 @@ int tt_fcm_multi_xors(const void* values, void* out, int C, int L, int K,
   return (int)cudaGetLastError();
 }
 
-// bcodes: (C, L) u8; xors, out: (C, L) u32. Exponents normalised.
+// bcodes: (C, L) u8; xors, out: (C, L) u32. Exponents normalised. G chunks
+// per block (1..32) and tiles of T values (a multiple of 16) are chosen here
+// when 0; a measurement may name them.
 int tt_replay(const void* bcodes, const void* xors, void* out, int C, int L,
-              int e1, int e2, void* stream) {
-  return launch_replay<uint32_t>(bcodes, xors, out, C, L, e1, e2, stream);
+              int e1, int e2, int G, int T, void* stream) {
+  return launch_replay<uint32_t>(bcodes, xors, out, C, L, e1, e2, G, T,
+                                 stream);
 }
 
-// bcodes: (C, L) u8; xors, out: (C, L) u64. Exponents normalised.
+// bcodes: (C, L) u8; xors, out: (C, L) u64; the rest as tt_replay.
 int tt_replay64(const void* bcodes, const void* xors, void* out, int C, int L,
-                int e1, int e2, void* stream) {
-  return launch_replay<uint64_t>(bcodes, xors, out, C, L, e1, e2, stream);
+                int e1, int e2, int G, int T, void* stream) {
+  return launch_replay<uint64_t>(bcodes, xors, out, C, L, e1, e2, G, T,
+                                 stream);
 }
 
 // word, out: (C, S) u32; pb + ceil(log2 S) <= 32.

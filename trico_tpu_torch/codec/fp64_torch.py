@@ -266,7 +266,7 @@ def _pack_ref(x, e1: int, e2: int):
 
 
 def encode_f64(values_u64: np.ndarray, chunk_len: int, e1: int = 20,
-               e2: int = 20, layout: str = "tpu", *, device):
+               e2: int = 20, layout: str = "tpu", *, device="cuda"):
     """Encode a flat uint64 stream in chunks of ``chunk_len`` (rounded down
     to even) on ``device``, in v2 chunks (``layout="tpu"``) or in the
     reference layout (``"ref"``, packed by the C++ host library).
@@ -283,7 +283,7 @@ def encode_f64(values_u64: np.ndarray, chunk_len: int, e1: int = 20,
 
 def encode_f64_adaptive(values_u64: np.ndarray, chunk_len: int,
                         candidates=F64_TPU_CANDIDATES, layout: str = "tpu",
-                        *, device):
+                        *, device="cuda"):
     """Adaptive per-chunk exponent f64 encode of a flat uint64 stream; see
     :func:`encode_f64_chunks_v2_adaptive`. Returns as :func:`encode_f64`.
     As in ``fp64_jax``, there is no reference-layout form of it."""
@@ -294,7 +294,7 @@ def encode_f64_adaptive(values_u64: np.ndarray, chunk_len: int,
 
 
 def decode_f64(payloads: np.ndarray, chunk_len: int, e1: int = 20,
-               e2: int = 20, layout: str = "tpu", *, device) -> np.ndarray:
+               e2: int = 20, layout: str = "tpu", *, device="cuda") -> np.ndarray:
     """Decode (C, B) padded chunk payloads of one layout → flat uint64
     values; reference-layout chunks are parsed by the C++ host library and
     replayed on ``device`` (fp64_jax.py:355-375)."""

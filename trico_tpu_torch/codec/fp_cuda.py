@@ -43,6 +43,10 @@ launches = dict.fromkeys(KERNELS, 0)
 MAX_SMEM = 232448
 # exponents one fcm_multi_xors launch takes (kMaxFcm in fp_kernels.cu)
 MAX_FCM = 8
+# what a replay block needs beside its tables: three stages of its smallest
+# tile (32 u64 words and their bcodes, each row padded by 16 bytes;
+# ReplayLayout in fp_kernels.cu)
+REPLAY_STAGE_BYTES = 960
 
 
 def reset_launches() -> None:
@@ -57,13 +61,14 @@ def _norm_exponents(e1: int, e2: int) -> tuple[int, int]:
 
 def tables_fit(exps, word_bytes: int = 4) -> bool:
     """True when hash tables of 2^e words of ``word_bytes`` each, one per
-    exponent in ``exps``, fit one block's shared memory: what a predictor or
-    replay kernel holds for one chunk."""
+    exponent in ``exps``, fit one block's shared memory: what a predictor
+    kernel holds for one chunk (a replay block needs ``REPLAY_STAGE_BYTES``
+    more for its tiles)."""
     return sum(1 << e for e in exps) * word_bytes <= MAX_SMEM
 
 
-def _need_fit(name: str, exps, word_bytes: int) -> None:
-    if not tables_fit(exps, word_bytes):
+def _need_fit(name: str, exps, word_bytes: int, extra: int = 0) -> None:
+    if sum(1 << e for e in exps) * word_bytes + extra > MAX_SMEM:
         raise ValueError(f"{name}: tables of exponents {tuple(exps)} exceed "
                          "one block's shared memory")
 
@@ -290,7 +295,8 @@ def replay64_plain(bcodes: torch.Tensor, xors: torch.Tensor, e1: int, e2: int):
     return _replay_words(xors, bcodes > 8, e1, e2, 64)
 
 
-def _replay_launch(name: str, bcodes, xors, e1, e2, dtype, word_bytes, plain):
+def _replay_launch(name: str, bcodes, xors, e1, e2, dtype, word_bytes, plain,
+                   G: int = 0, T: int = 0):
     e1, e2 = _norm_exponents(e1, e2)
     _check(bcodes, torch.uint8, f"{name} bcodes")
     _check(xors, dtype, f"{name} xors")
@@ -298,26 +304,31 @@ def _replay_launch(name: str, bcodes, xors, e1, e2, dtype, word_bytes, plain):
         raise ValueError(f"{name}: bcodes and xors differ in shape")
     if _on_cpu(bcodes, xors):
         return plain(bcodes, xors, e1, e2)
-    _need_fit(name, (e1, e2), word_bytes)
+    _need_fit(name, (e1, e2), word_bytes, REPLAY_STAGE_BYTES)
     C, L = xors.shape
     out = torch.empty_like(xors)
     if xors.numel():
         _launch(name, getattr(_lib(), f"tt_{name}"), bcodes.data_ptr(),
-                xors.data_ptr(), out.data_ptr(), C, L, e1, e2,
+                xors.data_ptr(), out.data_ptr(), C, L, e1, e2, G, T,
                 device=xors.device)
     return out
 
 
-def replay(bcodes: torch.Tensor, xors: torch.Tensor, e1: int, e2: int):
-    """(C, L) uint8 bcodes and int32 residual xors → (C, L) int32 values."""
+def replay(bcodes: torch.Tensor, xors: torch.Tensor, e1: int, e2: int,
+           G: int = 0, T: int = 0):
+    """(C, L) uint8 bcodes and int32 residual xors → (C, L) int32 values.
+    ``G`` chunks per warp and tiles of ``T`` values are the kernel's to choose
+    (0); a measurement may name them (G in 1..32, T a multiple of 16)."""
     return _replay_launch("replay", bcodes, xors, e1, e2, torch.int32, 4,
-                          replay_plain)
+                          replay_plain, G, T)
 
 
-def replay64(bcodes: torch.Tensor, xors: torch.Tensor, e1: int, e2: int):
-    """(C, L) uint8 bcodes and int64 residual xors → (C, L) int64 values."""
+def replay64(bcodes: torch.Tensor, xors: torch.Tensor, e1: int, e2: int,
+             G: int = 0, T: int = 0):
+    """(C, L) uint8 bcodes and int64 residual xors → (C, L) int64 values;
+    ``G`` and ``T`` as in :func:`replay`."""
     return _replay_launch("replay64", bcodes, xors, e1, e2, torch.int64, 8,
-                          replay64_plain)
+                          replay64_plain, G, T)
 
 
 # ---------------------------------------------------------------------------

@@ -27,9 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from trico_tpu import native
-
-from .. import _u32
+from .. import _u32, native
 from . import fp_cuda
 from .fp_cuda import _norm_exponents
 from .pack_funnel import region_bytes_f32
@@ -377,7 +375,7 @@ def _split(values_u32: np.ndarray, chunk_len: int):
 
 
 def encode_f32(values_u32: np.ndarray, chunk_len: int, e1: int = 4,
-               e2: int = 10, layout: str = "tpu", *, device):
+               e2: int = 10, layout: str = "tpu", *, device="cuda"):
     """Encode a flat uint32 stream in chunks of ``chunk_len`` on ``device``.
 
     Returns (payloads (C, B) uint8, sizes (C,) int64, tail_values); the tail
@@ -399,7 +397,7 @@ def encode_f32(values_u32: np.ndarray, chunk_len: int, e1: int = 4,
 
 def encode_f32_adaptive(values_u32: np.ndarray, chunk_len: int,
                         candidates=F32_TPU_CANDIDATES,
-                        layout: str = "tpu", *, device):
+                        layout: str = "tpu", *, device="cuda"):
     """Adaptive per-chunk exponent encode of a flat uint32 stream; see
     :func:`encode_f32_chunks_v2_adaptive`. Returns as :func:`encode_f32`.
     ``layout="ref"`` relays the v2 chunks out to the reference layout on
@@ -423,7 +421,7 @@ def encode_f32_adaptive(values_u32: np.ndarray, chunk_len: int,
 
 
 def decode_f32(payloads: np.ndarray, chunk_len: int, e1: int = 4,
-               e2: int = 10, layout: str = "tpu", *, device) -> np.ndarray:
+               e2: int = 10, layout: str = "tpu", *, device="cuda") -> np.ndarray:
     """Decode (C, B) padded chunk payloads of one layout → flat uint32
     values."""
     _check_layout(layout)

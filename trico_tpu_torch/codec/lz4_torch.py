@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from trico_tpu import native
+from .. import native
 
 _KNUTH = 2654435761  # the multiplicative hash of lz4_jax.py:50
 _HASH_BITS = 13
@@ -77,7 +77,7 @@ def find_matches(blocks: torch.Tensor):
     return offset.to(torch.int32), rle.to(torch.int32)
 
 
-def compress_plane(plane: np.ndarray, block: int, *, device) -> list[bytes]:
+def compress_plane(plane: np.ndarray, block: int, *, device="cuda") -> list[bytes]:
     """A byte plane as independent LZ4 blocks of ``block`` bytes → the list
     of block payloads. The full blocks' match search runs on ``device`` in
     one call; the native emitter writes every block in one threaded call,
