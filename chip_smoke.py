@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive trico_tpu_torch on one NVIDIA GPU: the chunked FP codec (f32 and
-f64, both chunk layouts), the BP and LZ4 integer codecs, whole v1 mesh
-archives and the CLI.
+f64, both chunk layouts, the reference layout also packed and parsed on the
+card), the BP and LZ4 integer codecs, whole v1 mesh archives and the CLI.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -15,39 +15,54 @@ Phases, each fatal on failure:
 3. hold each of the seven kernels against its plain PyTorch version on the
    card, at the shapes the main paths give it: the f32 bench stream (8M
    values, chunks of 4096, exponents (4,6), 16384 slots per parse row),
-   the adaptive encode with candidates ((0,6),(4,6),(8,6),(4,10)), which
-   gives ``fcm_multi_xors`` e1s=(8,), the f64 bench stream (16M doubles,
-   chunks of 4096, (4,6), 32768 slots per row), the reference-layout f32
-   and f64 legs (device predict and replay around the host library's pack
-   and parse) at (256, 4096), BP32 encode and decode of the whole fullmesh
-   triangle stream of phase 5 at (5376, 16384) and BP64 (bits 40-46
-   cycling) at (10752, 8192) (65536 slots per row, 16-bit slot ids in the
-   decode: the ``logshift`` word's top bit set), and every call of the Lucy
-   archive of phase 6 written and read at ``optimize=True`` in both
-   layouts; the plain versions run over blocks of rows. Besides, predict and
-   replay (both widths) at more exponents on words with NaN, inf, zero,
-   subnormal and negative patterns, f32 predict also at (14,14), whose
-   128 KB of tables take a block of one warp, and ``fcm_multi_xors`` at
-   (2,6,8). ``replay`` and ``replay64`` besides at chunk lengths off every
-   grid of the kernel (8, 40, 4096 + 8, and for f64 4102 = 2 x 2051), one
-   chunk, chunk counts that leave the last block partly filled, G and T
-   named by the caller, exponents (0,0), (0,6), (4,10), (10,10) (2048 table
-   words) and inputs that are views one word into a larger tensor (rows not
-   16-byte aligned); each must also restore the words it was predicted
-   from. Tolerance: exact equality of every word. Times of both from CUDA
-   events, ``logshift``'s also at 65536 slots, the replays' beside the
-   one-thread-per-chunk kernel's that they replace, and each kernel's bound:
-   the larger of its bytes (inputs read once, outputs written once) over
-   3.35 TB/s and its integer operations over 67 TOP/s;
+   its reference-layout encode and decode through the device pack and parse
+   (one ``logshift`` call at (2048, 17925), rows 4 bytes off the 16-byte
+   grid), the adaptive encode with candidates ((0,6),(4,6),(8,6),(4,10)),
+   which gives ``fcm_multi_xors`` e1s=(8,), the f64 bench stream (16M
+   doubles, chunks of 4096, (4,6), 32768 slots per row), the
+   reference-layout f32 and f64 legs (device predict and replay around the
+   host library's pack and parse) at (256, 4096), BP32 encode and decode of
+   the whole fullmesh triangle stream of phase 5 at (5376, 16384) and BP64
+   (bits 40-46 cycling) at (10752, 8192) (65536 slots per row, 16-bit slot
+   ids in the decode: the ``logshift`` word's top bit set), and every call
+   of the Lucy archive of phase 6 written and read at ``optimize=True`` in
+   both layouts; the plain versions run over blocks of rows. Besides,
+   predict and replay (both widths) at more exponents on words with NaN,
+   inf, zero, subnormal and negative patterns, f32 predict also at (14,14),
+   whose 128 KB of tables take a block of one warp, and ``fcm_multi_xors``
+   at (2,6,8). ``predict_xors`` and ``predict64_xors`` besides at chunk
+   lengths 8, 40, 4096 and 4104, one chunk and 1031, exponents (0,0), (0,6),
+   (4,6), (4,10), (10,12) and (14,14) or (12,12) (tables past 48 KB), also
+   on views one word into a larger tensor. ``logshift`` besides at 17925,
+   37, 2049 and 4100 slots and 1031 rows, left and right, with an all-dead
+   row, words that move past either edge, on views one word into a larger
+   tensor, and at 120001 slots, where a right expansion's row no longer
+   fits a block's stage and goes to the tiles. ``replay`` and ``replay64``
+   besides at chunk lengths off every grid of the kernel (8, 40, 4096 + 8,
+   and for f64 4102 = 2 x 2051), one chunk, chunk counts that leave the last
+   block partly filled, G and T named by the caller, exponents (0,0), (0,6),
+   (4,10), (10,10) (2048 table words) and inputs that are views one word
+   into a larger tensor (rows not 16-byte aligned); each must also restore
+   the words it was predicted from. Tolerance: exact equality of every word.
+   Times of both from CUDA events, ``logshift``'s also at 65536 slots, the
+   redesigned kernels' beside the times of the kernels that they replace,
+   and each kernel's bound: the larger of its bytes (inputs read once,
+   outputs written once) over 3.35 TB/s and its integer operations over 67
+   TOP/s;
 4. drive the FP paths through ``encode_chunked`` / ``decode_chunked`` and
    ``fp_torch.encode_f32_adaptive``: the f32 bench stream fixed, ``"fast"``
    and ``optimize=True``; the f64 bench stream (bench.py:290-293) at
    (4,6), ``"fast"`` and ``optimize=True``; the custom candidate set; the
    f32 stream at (16,16), whose tables no kernel holds (sort predictor);
-   the Stanford bunny's vertex planes as f32 and widened to f64 through
-   every profile. Every round trip must be bit-exact, and 16 chunks of
-   several of them, relaid out to the reference layout, must equal
-   ``fp_ref.compress`` of their values at their hash_info exponents;
+   the f32 stream in the reference layout through the device pack and parse
+   (``fp_torch.encode_f32(..., layout="ref", device_pack=True)`` and
+   ``decode_f32(..., device_parse=True)``, 2048 chunks of 4096): the bytes
+   of the host library's pack and of the v2 payloads relaid out, and the
+   same container from ``encode_chunked(layout="ref")`` with and without
+   the host library; the Stanford bunny's vertex planes as f32 and widened
+   to f64 through every profile. Every round trip must be bit-exact, and 16
+   chunks of several of them, relaid out to the reference layout, must
+   equal ``fp_ref.compress`` of their values at their hash_info exponents;
 5. drive the integer paths: the fullmesh triangle stream of
    bench.py:231-236 (88,080,384 u32 indices) through ``encode_bp_chunked``
    / ``decode_bp_chunked`` at 16384, the same indices as u64, and again
@@ -64,19 +79,22 @@ Phases, each fatal on failure:
    stream of every kind, whose archive must be the same bytes when written
    with ``device="cpu"``;
 7. run ``python -m trico_tpu_torch encode`` and ``decode`` on the bunny STL
-   with ``--device cuda`` as subprocesses: the geometry read back must equal
-   the input, and the archive the in-process writer's;
-8. print device-resident encode and decode GB/s (f32, f64, BP32, BP64) and
-   ``find_matches`` ms per 1 MiB block, from CUDA events;
+   as subprocesses, with ``--profile``: ``--chunked --device cuda`` (a v1
+   archive, the in-process writer's bytes) and without ``--chunked`` (a v0
+   archive written on the host, the in-process v0 writer's bytes); the
+   geometry read back must equal the input and each report name its stages;
+8. print device-resident encode and decode GB/s (f32 in both layouts, f64,
+   BP32, BP64) and ``find_matches`` ms per 1 MiB block, from CUDA events;
 9. print the kernels line: each kernel's launches during phases 4-6 (each
    must be > 0, and ``logshift`` must launch in phase 5), its largest
    difference from the plain version, both times and the bound
    (``library_ms`` is null: no single PyTorch call computes any of the
    seven functions).
 
-Every leg prints its peak device memory. The last line is ``{"ok": true,
-"device": {...}}``. Without a CUDA card, or without the repository beside
-it, the script exits non-zero and prints no result.
+Every leg prints its peak device memory, every time the card's name and
+power limit. The last line is ``{"ok": true, "device": {...}}``. Without a
+CUDA card, or without the repository beside it, the script exits non-zero
+and prints no result.
 """
 
 from __future__ import annotations
@@ -94,7 +112,7 @@ REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
 from trico_tpu_torch import (ArchiveReader, ArchiveWriter, _u32,  # noqa: E402
-                             _u64, chunked)
+                             _u64, chunked, native)
 from trico_tpu_torch.chunked import parse_validated_framing  # noqa: E402
 from trico_tpu_torch.codec import (_build, bp_ref, bp_torch,  # noqa: E402
                                    fp64_torch, fp_cuda, fp_ref, fp_torch,
@@ -109,6 +127,7 @@ EXP = (4, 6)
 EXTRA_EXPS = ((0, 6), (0, 0), (4, 10), (10, 10))
 EXTRA_EXPS64 = ((0, 6), (0, 0), (4, 10), (10, 10), (10, 12))
 BIG_EXP = (14, 14)  # predict tables past 48 KB: one warp per block
+BIG_EXP64 = (12, 12)  # the same for u64 words: 64 KB
 REPAIR_EXP = (16, 16)  # tables past any block: the sort predictor
 # an adaptive set with a 3-member e2 group: fcm_multi_xors gets e1s=(8,)
 CUSTOM_CANDIDATES = ((0, 6), (4, 6), (8, 6), (4, 10))
@@ -133,9 +152,19 @@ REPLACES = {
     "replay64": (f"{PALLAS}:440", []),
 }
 PLAIN = {name: getattr(fp_cuda, f"{name}_plain") for name in fp_cuda.KERNELS}
-# the replays' times as one thread per chunk, before their redesign (H100
-# 80GB HBM3 at 700 W, (2048, 4096) u32 and (4096, 4096) u64, (4,6))
-REPLAY_ONE_THREAD_MS = {"replay": 0.4863, "replay64": 0.8086}
+# the redesigned kernels' times before their redesign (H100 80GB HBM3 at
+# 700 W): the replays as one thread per chunk, logshift as a memset and a
+# scatter of 4-byte stores, the predictors with one window's load in flight;
+# (2048, 4096) u32 and (4096, 4096) u64 words, (4,6), 16384 slots
+BEFORE_REDESIGN_MS = {"replay": 0.4863, "replay64": 0.8086, "logshift": 0.1730,
+                      "predict_xors": 0.0901, "predict64_xors": 0.1641}
+# the arguments a kernel shares with its plain version; what follows them
+# only steers the kernel (G and T)
+PLAIN_ARGS = {"replay": 4, "replay64": 4}
+PREDICT_LENS = (8, 40, CHUNK_LEN, CHUNK_LEN + 8)
+PREDICT_EXPS = ((0, 0), (0, 6), (4, 6), (4, 10), (10, 12))
+PACK_SLOTS = 5 + 35 * CHUNK_LEN // 8  # 17925: the reference layout's pack row
+CARD = "unknown card"  # name and power limit, set by main()
 # chunk lengths off the replay kernel's grids (tile, 4-value vector, warp)
 REPLAY_ODD_LENS = {"replay": (8, 40, CHUNK_LEN + 8),
                    "replay64": (2, 38, 2 * 2051)}
@@ -269,6 +298,57 @@ def replay_shape_cases(name: str, words: torch.Tensor):
             case(64, long, EXP), case(1, CHUNK_LEN, EXP, view=True)]
 
 
+def predict_shape_cases(words: torch.Tensor, big_exp):
+    """Predict cases cut from (1031, 4104) ``words``: every length at one
+    chunk and at 1031, every exponent pair, tables past 48 KB, and a view
+    one word into a larger tensor."""
+    cases = []
+    for L in PREDICT_LENS:
+        for C in (1, words.shape[0]):
+            w = words[:C, :L].contiguous()
+            cases += [((w, *e), None) for e in PREDICT_EXPS + (big_exp,)]
+            cases.append(((offset_view(w), *EXP), None))
+    return cases
+
+
+def monotone_words(C: int, S: int, pb: int, seed: int):
+    """(left, right) logshift words of C rows of S slots on the card: random
+    live slots that compact to the front of the row, and the inverse; of
+    several rows the middle one all dead, and in row 1 words that move past
+    the row's edge."""
+    r = np.random.default_rng(seed)
+    live = r.random((C, S)) < 0.55
+    if C > 1:
+        live[C // 2] = False
+    rank = np.cumsum(live, axis=1) - live
+    payload = r.integers(1, 1 << pb, (C, S))
+    lanes = np.arange(S)
+    left = np.where(live, ((lanes - rank) << pb) | payload, 0)
+    right = np.zeros((C, S), np.int64)
+    rows, cols = np.nonzero(live)
+    src = rank[rows, cols]
+    right[rows, src] = ((cols - src) << pb) | payload[rows, cols]
+    if C > 2 and S > 16:
+        left[1, :6] = ((lanes[:6] + 2) << pb) | 7  # to lane -2: dropped
+        right[1, S - 6:] = (9 << pb) | 7  # past lane S - 1: dropped
+    return (_u32.from_numpy(left.astype(np.uint32)).cuda(),
+            _u32.from_numpy(right.astype(np.uint32)).cuda())
+
+
+def logshift_shape_cases():
+    """logshift cases off the kernel's grids: the pack row of 17925 slots at
+    1031 rows, plain and as views one word into a larger tensor; rows
+    shorter than a tile, one slot past a tile, a row count of one, and rows
+    too long for the stage of the kernel that takes a block per row."""
+    cases = []
+    for n, (C, S) in enumerate(((1031, PACK_SLOTS), (3, 37), (5, 2049), (1, 4100),
+                                (3, 120001))):
+        for word, direction in zip(monotone_words(C, S, 8, seed=n), ("left", "right")):
+            cases.append(((word, 8, direction), None))
+            cases.append(((offset_view(word), 8, direction), None))
+    return cases
+
+
 def record_calls(run):
     """Run ``run()`` with every kernel wrapper recording what it was given."""
     seen = {k: [] for k in fp_cuda.KERNELS}
@@ -323,7 +403,8 @@ def plain_by_rows(plain, args):
 def capture_main_path_inputs(x, x64, raw, raw64, tflat, lucy):
     """Run the main paths once at their shapes and record what each kernel
     wrapper was given: f32 encode and decode at (4,6), the adaptive encode
-    with the custom candidate set, f64 encode and decode at (4,6), the
+    with the custom candidate set, the f32 reference layout through the
+    device pack and parse, f64 encode and decode at (4,6), the
     reference-layout f32 and f64 legs, BP32 and BP64 encode and decode of
     the whole fullmesh stream, and the Lucy archive written and read at
     ``optimize=True`` in both layouts. Returns the calls by kernel and,
@@ -337,6 +418,10 @@ def capture_main_path_inputs(x, x64, raw, raw64, tflat, lucy):
         check(torch.equal(back, x), "f32 encode/decode round trip at the "
               "bench shape")
         fp_torch.encode_f32_chunks_v2_adaptive(x, CUSTOM_CANDIDATES)
+        payloads, _ = fp_torch.encode_f32_chunks(x, *EXP)
+        back = fp_torch.decode_f32_chunks(payloads, x.shape[1], *EXP)
+        check(torch.equal(back, x), "f32 reference-layout device pack and "
+              "parse round trip at the bench shape")
         payloads, _ = fp64_torch.encode_f64_chunks_v2(x64, *EXP)
         back = fp64_torch.decode_f64_chunks_v2(payloads, x64.shape[1], *EXP)
         check(torch.equal(back, x64), "f64 encode/decode round trip at the "
@@ -377,12 +462,18 @@ def kernel_phase(x, x64, raw, raw64, tflat, lucy):
     mixed = torch.cat([x[:256], special])
     special64 = _u64.from_numpy(special_words64(256, CHUNK_LEN)).cuda()
     mixed64 = torch.cat([x64[:256], special64])
+    odd = (1031, CHUNK_LEN + 8)  # rows and lengths off every grid
     extra = {"predict_xors": [((special, *EXP), None), ((mixed, *BIG_EXP), None)]
-             + [((mixed, *e), None) for e in EXTRA_EXPS],
+             + [((mixed, *e), None) for e in EXTRA_EXPS]
+             + predict_shape_cases(
+                 _u32.from_numpy(special_words(*odd, seed=5)).cuda(), BIG_EXP),
              "fcm_multi_xors": [((special, FCM_EXTRA_E1S), None)],
-             "replay": [], "logshift": [], "pair_compact_or": [],
+             "replay": [], "logshift": logshift_shape_cases(),
+             "pair_compact_or": [],
              "predict64_xors": [((special64, *EXP), None)]
-             + [((mixed64, *e), None) for e in EXTRA_EXPS64],
+             + [((mixed64, *e), None) for e in EXTRA_EXPS64]
+             + predict_shape_cases(
+                 _u64.from_numpy(special_words64(*odd, seed=6)).cuda(), BIG_EXP64),
              "replay64": []}
     for e in EXTRA_EXPS:
         bc, res = fp_torch._bcode_res_from_xors(*fp_cuda.predict_xors_plain(mixed, *e))
@@ -400,9 +491,8 @@ def kernel_phase(x, x64, raw, raw64, tflat, lucy):
         cases = [(args, None) for args in seen[name]] + extra[name]
         err = 0
         for i, (args, restores) in enumerate(cases):
-            # a replay case may name G and T, which only steer the kernel
             got, want = kern(*args), plain_by_rows(
-                plain, args[:4] if name.startswith("replay") else args)
+                plain, args[:PLAIN_ARGS.get(name, len(args))])
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
@@ -421,12 +511,12 @@ def kernel_phase(x, x64, raw, raw64, tflat, lucy):
         ms = time_ms(lambda: kern(*args0), 20)
         plain_ms = time_ms(lambda: plain(*args0),
                            1 if name.startswith("replay") else 3)
-        was = (f" (as one thread per chunk: {REPLAY_ONE_THREAD_MS[name]} ms)"
-               if name in REPLAY_ONE_THREAD_MS else "")
+        was = (f" (before its redesign: {BEFORE_REDESIGN_MS[name]} ms)"
+               if name in BEFORE_REDESIGN_MS else "")
         print(f"kernel {name}: {len(cases)} cases exact; at "
               f"{tuple(args0[0].shape)}: kernel {ms:.4f} ms{was}, plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-              f"({100 * bound_ms / ms:.1f}% of it reached)", flush=True)
+              f"({100 * bound_ms / ms:.1f}% of it reached) [{CARD}]", flush=True)
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": None}
@@ -436,13 +526,18 @@ def kernel_phase(x, x64, raw, raw64, tflat, lucy):
     want = ([(len(tflat) // BP_CHUNK, 1 << 16)] * 3
             + [(len(tflat) // BP64_CHUNK, 1 << 16)] * 3)
     check(shapes == want, f"logshift: BP calls at {shapes}, want {want}")
-    for args in bp_calls:
+    pack_calls = [a for a in seen["logshift"] if a[0].shape[1] == PACK_SLOTS]
+    check([tuple(a[0].shape) for a in pack_calls] == [(x.shape[0], PACK_SLOTS)],
+          "logshift: the reference layout's device pack is one call at "
+          f"({x.shape[0]}, {PACK_SLOTS})")
+    for args in pack_calls + bp_calls:
         ms = time_ms(lambda: fp_cuda.logshift(*args), 20)
         plain_ms = time_ms(lambda: plain_by_rows(PLAIN["logshift"], args), 3)
-        print(f"kernel logshift at 65536 slots {tuple(args[0].shape)}, pb = "
+        bound_ms, _ = bound_of("logshift", args, (args[0],))
+        print(f"kernel logshift at {tuple(args[0].shape)}, pb = "
               f"{args[1]}, {args[2]}: exact; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms (in blocks of {PLAIN_BLOCK >> 16} rows)",
-              flush=True)
+              f"{plain_ms:.4f} ms (in blocks of rows), bound {bound_ms:.4f} ms "
+              f"({100 * bound_ms / ms:.1f}% of it reached) [{CARD}]", flush=True)
     return results
 
 
@@ -526,6 +621,69 @@ def custom_candidates_leg(raw) -> None:
           f"{sorted(picked.items())}", flush=True)
 
 
+def ref_device_leg(raw) -> None:
+    """The f32 stream in the reference layout, packed and parsed on the
+    card: bit-exact, the bytes of the host library's pack, of the v2
+    payloads relaid out and of ``fp_ref.compress``; and the container of
+    ``encode_chunked(layout="ref")`` with the host library hidden, which
+    takes the same path, equal to the one written with it."""
+    L = CHUNK_LEN
+    before = dict(fp_cuda.launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mat, sizes, tail = fp_torch.encode_f32(raw, L, *EXP, layout="ref",
+                                           device_pack=True, device="cuda")
+    t1 = time.perf_counter()
+    mid = dict(fp_cuda.launches)
+    back = fp_torch.decode_f32(mat, L, *EXP, layout="ref", device_parse=True,
+                               device="cuda")
+    t2 = time.perf_counter()
+    after = dict(fp_cuda.launches)
+    C = len(raw) // L
+    check(mat.shape == (C, fp_torch.f32_max_chunk_bytes(L)) and len(tail) == 0,
+          "reference layout on the device: payload shape")
+    check(np.array_equal(back, raw), "reference layout on the device: round trip")
+    check(mid["logshift"] - before["logshift"] == 1
+          and mid["predict_xors"] - before["predict_xors"] == 1,
+          "reference layout on the device: the encode is one predict_xors and "
+          "one logshift launch")
+    check(after["replay"] - mid["replay"] == 1
+          and after["logshift"] == mid["logshift"],
+          "reference layout on the device: the decode is one replay launch")
+    host, host_sizes, _ = fp_torch.encode_f32(raw, L, *EXP, layout="ref",
+                                              device="cuda")
+    check(np.array_equal(mat, host) and np.array_equal(sizes, host_sizes),
+          "reference layout on the device: bytes differ from the host "
+          "library's pack")
+    v2, v2_sizes, _ = fp_torch.encode_f32(raw, L, *EXP, device="cuda")
+    check(np.array_equal(sizes, v2_sizes) and np.array_equal(
+        mat, native.relayout_chunks(v2, L, 32, to_v2=False)),
+        "reference layout on the device: bytes differ from the v2 payloads "
+        "relaid out")
+    check_v1_chunks([mat[c, : sizes[c]] for c in range(16)], raw, lambda p: p,
+                    "reference layout on the device")
+    with_lib = chunked.encode_chunked(raw, L, layout="ref", device="cuda")
+    real = native.available
+    native.available = lambda: False  # as on a host without a C++ toolchain
+    try:
+        blob = chunked.encode_chunked(raw, L, layout="ref", device="cuda")
+        got, _ = chunked.decode_chunked(blob, device="cuda")
+    finally:
+        native.available = real
+    check(blob == with_lib, "reference layout: the container differs without "
+          "the host library")
+    check(np.array_equal(got, raw), "reference layout without the host "
+          "library: round trip")
+    print(f"main path f32 {EXP} reference layout, device pack and parse: "
+          f"{len(raw)} values -> {int(sizes.sum())} B in {C} chunks, encode_f32 "
+          f"{t1 - t0:.3f} s, decode_f32 {t2 - t1:.3f} s (host clock, transfers "
+          "included); bit-exact; bytes equal to the host library's pack, to "
+          "the v2 payloads relaid out and (16 chunks) to fp_ref.compress; "
+          "encode_chunked(layout='ref') without the host library writes the "
+          f"same {len(blob)} B container and decode_chunked reads it back "
+          f"[{CARD}]", flush=True)
+
+
 def main_path_phase(raw, raw64):
     """Phase 4: the FP entry points on the card, bit-exact."""
     round_trip(raw, "f32 (4,6)", v1_check=True)
@@ -534,6 +692,7 @@ def main_path_phase(raw, raw64):
     custom_candidates_leg(raw)
     round_trip(raw, f"f32 {REPAIR_EXP} (sort predictor)", *REPAIR_EXP,
                v1_check=True)
+    ref_device_leg(raw)
     round_trip(raw64, "f64 (4,6)", *EXP, v1_check=True)
     round_trip(raw64, "f64 fast", optimize="fast")
     round_trip(raw64, "f64 optimize=True", optimize=True)
@@ -741,26 +900,51 @@ def archive_phase(lucy, bunny_verts, bunny_tris) -> None:
 
 
 def cli_phase(bunny_verts, bunny_tris) -> None:
-    """Phase 7: the CLI on the card, as subprocesses."""
+    """Phase 7: the CLI as subprocesses, a v1 archive on the card (the
+    default, and with --chunked) and a v0 archive on the host (--backend),
+    each with --profile."""
     WORK.mkdir(parents=True, exist_ok=True)
     src = REPO / "tests" / "data" / "StanfordBunny.stl"
-    trc, back = WORK / "bunny.trc", WORK / "bunny_back.stl"
-    t0 = time.perf_counter()
-    for args in (["encode", "-i", src, "-o", trc], ["decode", "-i", trc, "-o", back]):
-        res = subprocess.run([sys.executable, "-m", "trico_tpu_torch",
-                              *map(str, args), "--device", "cuda"], cwd=REPO,
-                             capture_output=True, text=True, timeout=600)
-        check(res.returncode == 0, f"CLI {args[0]} failed:\n{res.stderr[-3000:]}")
-    v, t = read_stl(back)
-    check(np.array_equal(v.view(np.uint32), bunny_verts.view(np.uint32))
-          and np.array_equal(t, bunny_tris), "CLI: geometry read back differs")
-    want = write_archive([("write_vertices", bunny_verts),
-                          ("write_triangles", bunny_tris)], "cuda")
-    check(trc.read_bytes() == want, "CLI: archive differs from ArchiveWriter's")
-    print(f"CLI: python -m trico_tpu_torch encode and decode --device cuda on "
-          f"the bunny STL ({time.perf_counter() - t0:.1f} s for both "
-          "processes): geometry equal, archive equal to ArchiveWriter's",
-          flush=True)
+    streams = [("write_vertices", bunny_verts), ("write_triangles", bunny_tris)]
+    v0 = ArchiveWriter(device="cpu")
+    for method, arr in streams:
+        getattr(v0, method)(arr)
+    v1 = write_archive(streams, "cuda")
+    for what, flags, want in (
+            ("(the default: version 1 on the card)", [], v1),
+            ("--chunked --device cuda", ["--chunked", "--device", "cuda"], v1),
+            ("--backend auto (version 0, on the host)", ["--backend", "auto"],
+             v0.tobytes())):
+        trc, back = WORK / "bunny.trc", WORK / "bunny_back.stl"
+        reported = []
+        t0 = time.perf_counter()
+        for args, stages in ((["encode", "-i", src, "-o", trc, *flags],
+                              ("read_stl", "encode_vertices", "encode_triangles",
+                               "write_archive")),
+                             (["decode", "-i", trc, "-o", back, "--device", "cuda"],
+                              ("decode_vertex_float", "decode_triangle_uint32",
+                               "write_mesh"))):
+            res = subprocess.run([sys.executable, "-m", "trico_tpu_torch",
+                                  *map(str, args), "--profile"], cwd=REPO,
+                                 capture_output=True, text=True, timeout=600)
+            check(res.returncode == 0,
+                  f"CLI {args[0]} {what} failed:\n{res.stderr[-3000:]}")
+            rows = [ln.split()[0] for ln in res.stderr.splitlines()
+                    if " ms " in ln]
+            check(rows == list(stages),
+                  f"CLI {args[0]} {what}: --profile reported {rows}")
+            reported += rows
+        v, t = read_stl(back)
+        check(np.array_equal(v.view(np.uint32), bunny_verts.view(np.uint32))
+              and np.array_equal(t, bunny_tris),
+              f"CLI {what}: geometry read back differs")
+        check(trc.read_bytes() == want,
+              f"CLI {what}: archive differs from ArchiveWriter's")
+        print(f"CLI: python -m trico_tpu_torch encode {what} and decode on the "
+              f"bunny STL ({time.perf_counter() - t0:.1f} s for both "
+              f"processes): geometry equal, {len(want)} B archive equal to "
+              f"ArchiveWriter's, --profile reports {', '.join(reported)}",
+              flush=True)
 
 
 def throughput_phase(x, x64, tflat):
@@ -778,12 +962,15 @@ def throughput_phase(x, x64, tflat):
                   f"device-resident round trip, {what}")
             dec_ms = time_ms(lambda: dec(payloads), 10)
             line += f", decode {nbytes / dec_ms / 1e6:.3f} GB/s ({dec_ms:.3f} ms)"
-        print(f"{line}, ratio {nbytes / float(sizes.sum().item()):.4f}",
-              flush=True)
+        print(f"{line}, ratio {nbytes / float(sizes.sum().item()):.4f} "
+              f"[{CARD}]", flush=True)
 
     L = CHUNK_LEN
     report("f32 (4,6)", x, lambda w: fp_torch.encode_f32_chunks_v2(w, *EXP),
            lambda p: fp_torch.decode_f32_chunks_v2(p, L, *EXP))
+    report("f32 (4,6), reference layout packed and parsed on the device", x,
+           lambda w: fp_torch.encode_f32_chunks(w, *EXP),
+           lambda p: fp_torch.decode_f32_chunks(p, L, *EXP))
     report("f32 optimize=True", x, lambda w: fp_torch.encode_f32_chunks_v2_adaptive(
         w, fp_torch.F32_TPU_CANDIDATES))
     report("f64 (4,6)", x64, lambda w: fp64_torch.encode_f64_chunks_v2(w, *EXP),
@@ -820,7 +1007,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
-    print(f"gpu: {smi[0]}", flush=True)
+    global CARD
+    CARD = smi[0]
+    print(f"gpu: {CARD}", flush=True)
 
     t0 = time.perf_counter()
     report = _build.build_all()

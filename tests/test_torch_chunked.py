@@ -176,29 +176,35 @@ def test_f64_host_fallbacks_without_native_library(monkeypatch):
 
 @pytest.mark.parametrize("case", ["f64", "ref", "optimize", "float32"])
 def test_unported_encodes_raise(case, monkeypatch):
-    """What is not ported raises: the f32 reference layout without the C++
-    host library (its device pack), at fixed exponents; a reference-layout
-    f64 adaptive chunk encode (none exists in fp64_jax either); an unknown
-    layout. Float arrays are not raw bits."""
+    """What has no counterpart raises: a reference-layout f64 adaptive chunk
+    encode (none exists in fp64_jax either); an unknown layout. Float arrays
+    are not raw bits. The f32 reference layout without the C++ host library,
+    which raised until its device pack was ported, gives trico_tpu's
+    bytes."""
     no_native(monkeypatch)
     if case == "f64":
         with pytest.raises(ValueError):
             fp64_torch.encode_f64_adaptive(np.zeros(16, np.uint64), 8,
                                            layout="ref", device="cpu")
         return
+    if case == "ref":
+        for vals in (np.zeros(16, np.uint32), _stream(5 * 8 + 3, seed=2)):
+            got = tc.encode_chunked(vals, 8, layout="ref", device="cpu")
+            assert got == jc.encode_chunked(vals, 8, use_tpu=True, layout="ref")
+        return
     vals = np.zeros(16, np.float32 if case == "float32" else np.uint32)
-    kw = {"float32": {}, "optimize": {"layout": "v3", "optimize": True}}.get(
-        case, {"layout": "ref"})
-    err = {"float32": TypeError, "optimize": ValueError}.get(case, NotImplementedError)
+    kw = {"float32": {}, "optimize": {"layout": "v3", "optimize": True}}[case]
+    err = {"float32": TypeError, "optimize": ValueError}[case]
     with pytest.raises(err):
         tc.encode_chunked(vals, 8, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("case", ["f64", "ref", "lz4"])
 def test_unported_decodes_raise(case, monkeypatch):
-    """Without the C++ host library an f32 reference-layout container needs
-    the device parse, which is not ported, where f64 ones are host-decoded
-    (trico_tpu/chunked.py:708-710); non-FP containers are refused."""
+    """Without the C++ host library an f32 reference-layout container is
+    parsed on the device (it raised until that parse was ported), where f64
+    ones are host-decoded (trico_tpu/chunked.py:708-710); non-FP containers
+    are refused."""
     no_native(monkeypatch)
     if case == "lz4":
         blob = jc.encode_lz4_chunked(np.zeros(64, np.uint8), use_tpu=False)
@@ -207,11 +213,7 @@ def test_unported_decodes_raise(case, monkeypatch):
         return
     vals = np.arange(16, dtype=np.uint64 if case == "f64" else np.uint32)
     blob = jc.encode_chunked(vals, 8, use_tpu=False, layout="ref")
-    if case == "ref":
-        with pytest.raises(NotImplementedError):
-            tc.decode_chunked(blob, device="cpu")
-    else:
-        np.testing.assert_array_equal(tc.decode_chunked(blob, device="cpu")[0], vals)
+    np.testing.assert_array_equal(tc.decode_chunked(blob, device="cpu")[0], vals)
 
 
 def test_cuda_without_a_card_raises():

@@ -186,19 +186,27 @@ def test_host_entry_points_without_full_chunks():
 @pytest.mark.parametrize("fn", ["encode_f32", "encode_f32_adaptive", "decode_f32"])
 def test_ref_layout_raises(fn, monkeypatch):
     """Without the C++ host library the reference layout's pack and parse
-    would be the device ones, which are not ported: encode_f32 and
-    decode_f32 name the ROADMAP item. The adaptive encode relays its v2
-    chunks out on the host and needs no library; it refuses an unknown
-    layout."""
+    are the device ones: encode_f32 and decode_f32, which raised before these
+    were ported, give fp_jax's bytes and values. The adaptive encode relays
+    its v2 chunks out on the host and needs no library; it refuses an
+    unknown layout."""
     no_native(monkeypatch)
-    arg = np.zeros((1, fp_torch.f32_max_chunk_bytes(8)), np.uint8) \
-        if fn == "decode_f32" else np.zeros(16, np.uint32)
     if fn == "encode_f32_adaptive":
         with pytest.raises(ValueError, match="unknown layout"):
-            fp_torch.encode_f32_adaptive(arg, 8, layout="v3", device="cpu")
+            fp_torch.encode_f32_adaptive(np.zeros(16, np.uint32), 8, layout="v3",
+                                         device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        getattr(fp_torch, fn)(arg, 8, layout="ref", device="cpu")
+    vals = words(5, 16, seed=3).reshape(-1)
+    want, want_sizes, want_tail = fp_jax.encode_f32(vals, 8, layout="ref")
+    if fn == "encode_f32":
+        got, sizes, tail = fp_torch.encode_f32(vals, 8, layout="ref", device="cpu")
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(sizes, want_sizes)
+        np.testing.assert_array_equal(tail, want_tail)
+    else:
+        back = fp_torch.decode_f32(want, 8, layout="ref", device="cpu")
+        np.testing.assert_array_equal(back, vals)
+        np.testing.assert_array_equal(fp_jax.decode_f32(want, 8, layout="ref"), vals)
 
 
 def test_relayout_matches_jax_and_oracle():

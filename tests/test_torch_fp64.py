@@ -241,16 +241,17 @@ def test_host_entry_points_without_full_chunks():
 @pytest.mark.parametrize("fn", ["encode_f64", "encode_f64_adaptive", "decode_f64"])
 def test_ref_layout_raises(fn, monkeypatch):
     """Without the C++ host library, which packs and parses the reference
-    layout, encode_f64 / decode_f64 name the ROADMAP item of the reference
-    layout; the adaptive encode has no reference layout in fp64_jax either."""
+    layout, encode_f64 / decode_f64 say that it is missing (chunked
+    host-codes such chunks and never calls them then); the adaptive encode
+    has no reference layout in fp64_jax either."""
     no_native(monkeypatch)
-    arg =np.zeros((1, fp64_torch.f64_max_chunk_bytes(8)), np.uint8) \
+    arg = np.zeros((1, fp64_torch.f64_max_chunk_bytes(8)), np.uint8) \
         if fn == "decode_f64" else np.zeros(16, np.uint64)
     err = ValueError if fn == "encode_f64_adaptive" else NotImplementedError
     with pytest.raises(err):
         getattr(fp64_torch, fn)(arg, 8, layout="ref", device="cpu")
     if err is NotImplementedError:
-        with pytest.raises(err, match="queue 1 item 8"):
+        with pytest.raises(err, match="host library, which is not built"):
             getattr(fp64_torch, fn)(arg, 8, layout="ref", device="cpu")
 
 

@@ -154,6 +154,9 @@ def test_wrappers_on_cpu_run_plain_versions_and_count_nothing():
     xor1, xor2 = fp_cuda.predict_xors(x, 4, 6)
     ref1, ref2 = fp_cuda.predict_xors_plain(x, 4, 6)
     assert torch.equal(xor1, ref1) and torch.equal(xor2, ref2)
+    x64 = _u64.from_numpy(words64(3, 64))
+    assert torch.equal(fp_cuda.predict64_xors(x64, 4, 6)[0],
+                       fp_cuda.predict64_xors_plain(x64, 4, 6)[0])
     bc, res = fp_torch._bcode_res_from_xors(xor1, xor2)
     assert torch.equal(fp_cuda.replay(bc, res, 4, 6), x)
     assert fp_cuda.launches == dict.fromkeys(fp_cuda.KERNELS, 0)

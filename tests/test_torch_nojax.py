@@ -75,8 +75,9 @@ kinds += [("write_attributes_float", f(1, np.float32, 5)[:, 0]),
           ("write_attributes_uint16", np.arange(n, dtype=np.uint16)),
           ("write_attributes_uint32", np.arange(n, dtype=np.uint32) * 977),
           ("write_attributes_uint64", np.arange(n, dtype=np.uint64) << np.uint64(40))]
-# the reference layout of f32 chunks needs the host library's pack and parse
-for layout in ("tpu", "ref") if {native} else ("tpu",):
+# without the host library the reference layout of f32 chunks is packed and
+# parsed on the device
+for layout in ("tpu", "ref"):
     w = tt.ArchiveWriter(chunk_len=1024, layout=layout, device="cpu")
     for method, arr in kinds:
         getattr(w, method)(arr)
@@ -98,10 +99,17 @@ from trico_tpu_torch import cli
 from trico_tpu_torch.io import stl
 bunny = {repo!r} + "/tests/data/StanfordBunny.stl"
 with tempfile.TemporaryDirectory() as d:
-    assert cli.main(["encode", "-i", bunny, "-o", d + "/b.trc", "--device", "cpu"]) == 0
-    assert cli.main(["decode", "-i", d + "/b.trc", "-o", d + "/b.stl", "--device", "cpu"]) == 0
-    for a, b in zip(stl.read_stl(bunny), stl.read_stl(d + "/b.stl")):
+    for flags in (["--chunked", "--device", "cpu"], ["--device", "cpu"], ["--backend", "auto"], ["--backend", "numpy"]):
+        assert cli.main(["encode", "-i", bunny, "-o", d + "/b.trc", "--profile", *flags]) == 0
+        assert tt.ArchiveReader(open(d + "/b.trc", "rb").read(), device="cpu").version == (0 if flags[:1] == ["--backend"] else 1)
+        assert cli.main(["decode", "-i", d + "/b.trc", "-o", d + "/b.stl", "--device", "cpu", "--profile"]) == 0
+        for a, b in zip(stl.read_stl(bunny), stl.read_stl(d + "/b.stl")):
+            assert np.array_equal(a, b)
+    for a, b in zip(tt.read_stl(bunny), stl.read_stl(bunny)):
         assert np.array_equal(a, b)
+    from trico_tpu_torch import profiling
+    with profiling.trace(d + "/trace"), profiling.annotate("encode"):
+        tt.encode_chunked(vals, 1024, layout="ref", device="cpu")
 assert sys.modules["jax"] is None and sys.modules["trico_tpu"] is None
 print("ok")
 """

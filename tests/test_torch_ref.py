@@ -15,8 +15,9 @@ from trico_tpu_torch.codec import fp_cuda, fp_torch
 from torch_cases import (align_native, no_native, recording,  # noqa: F401
                          require_native, words, words64)
 
-# the f32 reference layout's pack and parse of full chunks are in the C++
-# host library: the cases that reach them call require_native()
+# the cases that hold the C++ host library's pack and parse of full chunks
+# call require_native(); without the library the device pack and parse run
+# (tests/test_torch_ref_device.py)
 pytestmark = pytest.mark.usefixtures("align_native")
 
 
@@ -32,8 +33,6 @@ def _stream64(n, seed=0):
                                  (100, 1024), (0, 1024)])
 @pytest.mark.parametrize("opt", [False, "fast", True])
 def test_ref_layout_f32_matches_jax(n, L, opt):
-    if n >= L:
-        require_native()
     vals = _stream(n, seed=n)
     got = tc.encode_chunked(vals, L, layout="ref", optimize=opt, device="cpu")
     assert got == jc.encode_chunked(vals, L, use_tpu=True, layout="ref",
@@ -65,7 +64,6 @@ def test_ref_layout_f64_matches_jax(n, L, opt):
 def test_ref_layout_f32_exponents(e1, e2):
     """(14,18) predicts by the sort and decodes on the host, as do tables
     past DEVICE_TABLE_WORDS; the others replay on the device."""
-    require_native()
     vals = _stream(2 * 1024 + 300, seed=e2)
     got = tc.encode_chunked(vals, 1024, e1, e2, layout="ref", device="cpu")
     assert got == jc.encode_chunked(vals, 1024, e1, e2, use_tpu=True, layout="ref")
@@ -91,8 +89,6 @@ def test_ref_layout_f64_exponents(e1, e2):
 def test_port_decodes_jax_host_ref_containers(dtype, opt):
     """Reference-layout containers from trico_tpu's host encoder, the
     archives a CPU-only machine writes."""
-    if dtype == np.uint32:
-        require_native()
     vals = (_stream if dtype == np.uint32 else _stream64)(4 * 1024 + 9, seed=2)
     blob = jc.encode_chunked(vals, 1024, use_tpu=False, layout="ref", optimize=opt)
     np.testing.assert_array_equal(tc.decode_chunked(blob, device="cpu")[0], vals)
@@ -127,17 +123,18 @@ def test_f64_ref_without_native_is_host_coded(monkeypatch, opt):
 
 
 def test_f32_ref_without_native_raises(monkeypatch):
-    """Without the host library the f32 reference layout needs the device
-    pack and parse, which are not ported: a short stream (no full chunk) is
-    still host-coded, as in trico_tpu."""
-    require_native()  # to write the container that then fails to decode
+    """Without the host library the f32 reference layout takes the device
+    pack and parse (it raised until they were ported): the same container
+    bytes as with the library, read back exact; a short stream (no full
+    chunk) is host-coded, as in trico_tpu."""
     vals = _stream(2 * 1024, seed=8)
-    blob = tc.encode_chunked(vals, 1024, layout="ref", device="cpu")
+    with_native = tc.encode_chunked(vals, 1024, layout="ref", device="cpu")
     no_native(monkeypatch)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tc.encode_chunked(vals, 1024, layout="ref", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tc.decode_chunked(blob, device="cpu")
+    with recording(fp_cuda, "logshift") as calls:
+        blob = tc.encode_chunked(vals, 1024, layout="ref", device="cpu")
+    assert len(calls) == 1 and blob == with_native
+    assert blob == jc.encode_chunked(vals, 1024, use_tpu=True, layout="ref")
+    np.testing.assert_array_equal(tc.decode_chunked(blob, device="cpu")[0], vals)
     short = vals[:1000]
     assert tc.encode_chunked(short, 1024, layout="ref", device="cpu") == \
         jc.encode_chunked(short, 1024, use_tpu=False, layout="ref")

@@ -26,7 +26,8 @@ v1 mesh archive:
   chunks, v0 archives, reference-layout pack and parse, LZ4 emit), with the
   NumPy oracles ``codec.fp_ref``, ``bp_ref``, ``lz4_ref`` and
   ``codec.transpose`` as its fallback;
-* :mod:`trico_tpu_torch.io` — the STL and PLY readers and writers.
+* :mod:`trico_tpu_torch.io` — the STL and PLY readers and writers;
+* :mod:`trico_tpu_torch.profiling` — ``StageTimer``, ``trace``, ``annotate``.
 
 The package stands alone: it imports neither JAX nor anything of
 ``trico_tpu``, and keeps its own copy of every host part. Every entry point
@@ -40,13 +41,15 @@ from .chunked import (decode_bp_chunked, decode_chunked, decode_lz4_chunked,
                       encode_bp_chunked, encode_chunked, encode_int_best,
                       encode_lz4_chunked)
 from .codec import bp_torch, fp64_torch, fp_cuda, fp_torch, lz4_torch, pack_funnel
+from .io.ply import PlyMesh, read_ply, write_ply
+from .io.stl import compute_triangle_normals, read_stl, write_stl
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
-__all__ = ["ArchiveReader", "ArchiveWriter", "StreamType", "_u32", "_u64",
-           "archive", "bp_torch", "chunked", "decode_bp_chunked",
-           "decode_chunked", "decode_lz4_chunked", "encode_bp_chunked",
-           "encode_chunked", "encode_int_best", "encode_lz4_chunked",
-           "fp64_torch", "fp_cuda", "fp_torch", "lz4_torch", "native",
-           "pack_funnel",
-           "__version__"]
+__all__ = ["ArchiveReader", "ArchiveWriter", "PlyMesh", "StreamType", "_u32",
+           "_u64", "archive", "bp_torch", "chunked", "compute_triangle_normals",
+           "decode_bp_chunked", "decode_chunked", "decode_lz4_chunked",
+           "encode_bp_chunked", "encode_chunked", "encode_int_best",
+           "encode_lz4_chunked", "fp64_torch", "fp_cuda", "fp_torch",
+           "lz4_torch", "native", "pack_funnel", "read_ply", "read_stl",
+           "write_ply", "write_stl", "__version__"]

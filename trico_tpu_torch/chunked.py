@@ -288,10 +288,11 @@ def encode_chunked(values: np.ndarray, chunk_len: int = DEFAULT_CHUNK_LEN,
     exponents from the full candidate set of its width, ``optimize="fast"``
     from the ``*_FAST`` set. ``layout="tpu"`` writes v2 chunks,
     ``layout="ref"`` reference-layout chunks (packed by the C++ host
-    library; without it, f32 raises ``NotImplementedError`` and f64 is
-    host-coded, as in ``trico_tpu``). The tail chunk is host-coded, in the
-    reference layout, with the same choice. ``device`` is ``"cuda"`` unless
-    the caller asks for ``"cpu"``."""
+    library; without it, f32 chunks are packed on the device by
+    ``fp_torch.pack_f32_chunks`` and f64 chunks are host-coded, as in
+    ``trico_tpu``). The tail chunk is host-coded, in the reference layout,
+    with the same choice. ``device`` is ``"cuda"`` unless the caller asks
+    for ``"cpu"``."""
     dev = _resolve_device(device)
     if values.dtype == np.uint32:
         exp, group = F32_TPU_EXP, 8
@@ -341,7 +342,8 @@ def decode_chunked(data, *, device="cuda") -> tuple[np.ndarray, int]:
     hash_info byte; chunks whose tables exceed ``DEVICE_TABLE_WORDS`` and
     the tail chunk decode on the host, and so do f64 reference-layout chunks
     when the host library that parses them is missing
-    (trico_tpu/chunked.py:708-710)."""
+    (trico_tpu/chunked.py:708-710); f32 reference-layout chunks are then
+    parsed on the device (``fp_torch.parse_f32_chunks``)."""
     dev = _resolve_device(device)
     data = bytes(data)
     hdr, sizes, off = parse_validated_framing(data)

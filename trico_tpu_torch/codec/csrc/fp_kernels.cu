@@ -4,8 +4,8 @@
 // trico_tpu/codec/fp_pallas.py, bit for bit, but not with their block
 // structure: the TPU kernels read tables by one-hot compare/select and move
 // data through log-shift networks because the TPU has no fast gather or
-// scatter; Hopper indexes shared memory directly and scatters to global
-// memory, so those workarounds are gone. The TPU also has no 64-bit
+// scatter; Hopper indexes and scatters in shared memory directly, so those
+// workarounds are gone. The TPU also has no 64-bit
 // integers, so its f64 kernels carry (hi, lo) u32 pairs with explicit carry
 // and borrow; here a u64 word is a uint64_t, and the f32 and f64 kernels are
 // one template over the word type W.
@@ -30,6 +30,30 @@ constexpr int kDefaultSmem = 49152;
 constexpr int kSmSmem = 233472;
 // Exponents one fcm_multi launch takes (fp_cuda.MAX_FCM).
 constexpr int kMaxFcm = 8;
+
+// The three choices below are fixed from measurements on the H100 and are no
+// argument of any entry point. tools/kernel_compare.py builds copies of this
+// file with other values (-D...) to time them beside the library's.
+#ifndef TT_PREDICT_DEPTH
+#define TT_PREDICT_DEPTH 4
+#endif
+#ifndef TT_SHIFT_VEC
+#define TT_SHIFT_VEC 2
+#endif
+#ifndef TT_SHIFT_KERNEL
+#define TT_SHIFT_KERNEL 0
+#endif
+// Windows of 32 values that a predictor warp fetches ahead of the ones it
+// resolves: 1 and 2 are slower, 8 gains 3% on u32 words and loses 1-2% on
+// u64 words.
+constexpr int kPredictDepth = TT_PREDICT_DEPTH;
+// 16-byte loads a thread of a logshift tile block makes: tiles of 1024 x
+// this many source slots. 1 is slower everywhere, 4 level with 2.
+constexpr int kShiftVec = TT_SHIFT_VEC;
+// Which logshift kernel a launch takes. 0: a block per row for a right
+// expansion whose row fits the stage, the tiles otherwise; 1: the tiles
+// always; -1: a block per row wherever the row fits.
+constexpr int kShiftKernel = TT_SHIFT_KERNEL;
 
 // Top e bits of a word, as a table key; 0 when e == 0. `x >> 32` (or 64) is
 // undefined in C++, and the reference keeps the FCM/DFCM key at 0 for a zero
@@ -69,28 +93,62 @@ __device__ __forceinline__ void window_write(W* t, uint32_t key, W payload,
   if (active && (group >> lane) == 1u) t[key] = payload;
 }
 
+// window_read without the table: whether a lower lane holds this lane's
+// key (`hit`), that lane's payload (`from_lane`), and whether this lane is
+// the last of its key (`last`, the one that writes the table).
+template <typename W>
+__device__ __forceinline__ void window_match(uint32_t key, W payload, int lane,
+                                             bool& hit, bool& last,
+                                             W& from_lane) {
+  const unsigned group = __match_any_sync(kFull, key);
+  const unsigned below = group & ((1u << lane) - 1u);
+  from_lane = __shfl_sync(kFull, payload, below ? 31 - __clz(below) : lane);
+  hit = below != 0u;
+  last = (group >> lane) == 1u;
+}
+
 // ---------------------------------------------------------------------------
-// predict_kernel<uint32_t> (tt_predict_xors): replaces _predict_window_kernel
-// (fp_pallas.py:85) and _predict_kernel (fp_pallas.py:59).
-// predict_kernel<uint64_t> (tt_predict64_xors): replaces
-// _predict64_window_kernel (fp_pallas.py:493) and _predict64_kernel
+// predict_kernel<uint32_t, D> (tt_predict_xors): replaces
+// _predict_window_kernel (fp_pallas.py:85) and _predict_kernel
+// (fp_pallas.py:59). predict_kernel<uint64_t, D> (tt_predict64_xors):
+// replaces _predict64_window_kernel (fp_pallas.py:493) and _predict64_kernel
 // (fp_pallas.py:578).
 //
 // Encode has no value->prediction feedback: the FCM key of position i is
 // top_e1(v[i-1]) and the DFCM key is t[i-1] ^ ((t[i-2] << e2/2) & m2) with
 // t = top_e2(v - vprev), for f32 and f64 alike (the f64 keys read only the
 // high word). So a table read at i is "payload of the latest j < i with the
-// same key, else 0". One warp per chunk walks it 32 positions at a time
-// (window_read / window_write).
+// same key, else 0". One warp per chunk walks it 32 positions (a window) at
+// a time (window_match, then the table).
 //
-// Bound on the H100: latency of the per-window shared-memory read and the
-// shuffles; the bytes (1 word in, 2 out per value) are small. The design
-// keeps the two tables of each chunk in shared memory (80 words at (4,6): 320
-// bytes for f32, 640 for f64) and packs several chunk warps per block, so no
-// table traffic reaches device memory and 32 positions resolve per step
-// instead of one.
+// Bound on the H100: device-memory bytes (one word in, two out per value:
+// 0.030 ms for (2048, 4096) u32 words at 3.35 TB/s, 0.120 ms for
+// (4096, 4096) u64 words). A chunk is one warp, so a launch has only C
+// warps to keep loads in flight, and what a warp does in turn for each
+// window must be short, or L / 32 times that sets the launch's time. The
+// design: the two tables of each chunk stay in shared memory (80 words at
+// (4,6)) and several chunk warps share a block. Each warp holds the next D
+// windows of its row in registers, fetched before the current D are
+// resolved, so 2 * D * 128 bytes (u32) a warp are in flight. Keys, key
+// groups and the payloads that come from a lower lane need no table, only
+// the fetched values (the carries between windows too): they are worked
+// out for all D windows first, so that the two match_any and nine shuffles
+// of one window overlap those of the next. What is left in turn for each
+// window is the table read of the lanes without a lower match, the two
+// stores, and the table write, with a __syncwarp after each.
 // ---------------------------------------------------------------------------
-template <typename W>
+__device__ __forceinline__ uint32_t ld_stream(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint64_t ld_stream(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.global.nc.u64 %0, [%1];" : "=l"(v) : "l"(p));
+  return v;
+}
+
+template <typename W, int D>
 __global__ void predict_kernel(const W* __restrict__ values,
                                W* __restrict__ xor1, W* __restrict__ xor2,
                                int C, int L, int e1, int e2) {
@@ -100,12 +158,23 @@ __global__ void predict_kernel(const W* __restrict__ values,
   const int T1 = 1 << e1, T2 = 1 << e2;
   const long long c = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (c >= C) return;  // warp-uniform
+  const W* row = values + c * L;
+  // D windows from `base` on; the loads start here, in program order
+  auto fetch = [&](W (&w)[D], int base) {
+#pragma unroll
+    for (int u = 0; u < D; ++u) {
+      const int i = base + 32 * u + lane;
+      w[u] = i < L ? ld_stream(row + i) : W(0);
+    }
+  };
+  W cur[D], nxt[D];
+  fetch(cur, 0);
+
   W* t1 = reinterpret_cast<W*>(smem_raw) + (size_t)warp * (T1 + T2);
   W* t2 = t1 + T1;
   for (int k = lane; k < T1 + T2; k += 32) t1[k] = W(0);
   __syncwarp();
 
-  const W* row = values + c * L;
   W* x1 = xor1 + c * L;
   W* x2 = xor2 + c * L;
   const uint32_t m2 = (uint32_t)((1ull << e2) - 1);
@@ -113,35 +182,52 @@ __global__ void predict_kernel(const W* __restrict__ values,
   W vprev_c = W(0);
   uint32_t tprev = 0u, tprev2 = 0u;  // carries, zero at i = 0
 
-  for (int base = 0; base < L; base += 32) {
-    const int i = base + lane;
-    const bool active = i < L;
-    const W v = active ? row[i] : W(0);
-    const W up1 = __shfl_up_sync(kFull, v, 1);
-    const W vprev = lane ? up1 : vprev_c;
-    const W s = v - vprev;
-    const uint32_t t = top_bits(s, e2);
-    const uint32_t tu1 = __shfl_up_sync(kFull, t, 1);
-    const uint32_t tu2 = __shfl_up_sync(kFull, t, 2);
-    const uint32_t t_1 = lane >= 1 ? tu1 : tprev;
-    const uint32_t t_2 = lane >= 2 ? tu2 : (lane == 1 ? tprev : tprev2);
-    const uint32_t k1 = active ? top_bits(vprev, e1) : dead_key(lane);
-    const uint32_t k2 =
-        active ? (e2 ? (t_1 ^ ((t_2 << sh2) & m2)) : 0u) : dead_key(lane);
-    unsigned g1, g2;
-    const W pred1 = window_read(t1, k1, v, lane, active, g1);
-    const W pred2 = window_read(t2, k2, s, lane, active, g2);
-    if (active) {
-      x1[i] = v ^ pred1;
-      x2[i] = v ^ (vprev + pred2);
+  for (int base = 0; base < L; base += 32 * D) {
+    fetch(nxt, base + 32 * D);
+    W s[D], vprev[D], from1[D], from2[D];
+    uint32_t k1[D], k2[D];
+    bool hit1[D], hit2[D], last1[D], last2[D];
+#pragma unroll
+    for (int u = 0; u < D; ++u) {  // no table is read here
+      const bool active = base + 32 * u + lane < L;
+      const W v = cur[u];
+      const W up1 = __shfl_up_sync(kFull, v, 1);
+      vprev[u] = lane ? up1 : vprev_c;
+      s[u] = v - vprev[u];
+      const uint32_t t = top_bits(s[u], e2);
+      const uint32_t tu1 = __shfl_up_sync(kFull, t, 1);
+      const uint32_t tu2 = __shfl_up_sync(kFull, t, 2);
+      const uint32_t t_1 = lane >= 1 ? tu1 : tprev;
+      const uint32_t t_2 = lane >= 2 ? tu2 : (lane == 1 ? tprev : tprev2);
+      k1[u] = active ? top_bits(vprev[u], e1) : dead_key(lane);
+      k2[u] = active ? (e2 ? (t_1 ^ ((t_2 << sh2) & m2)) : 0u) : dead_key(lane);
+      window_match(k1[u], v, lane, hit1[u], last1[u], from1[u]);
+      window_match(k2[u], s[u], lane, hit2[u], last2[u], from2[u]);
+      vprev_c = __shfl_sync(kFull, v, 31);
+      tprev2 = __shfl_sync(kFull, t, 30);
+      tprev = __shfl_sync(kFull, t, 31);
     }
-    __syncwarp();  // every lane read the tables as of the window's start
-    window_write(t1, k1, v, lane, active, g1);
-    window_write(t2, k2, s, lane, active, g2);
-    __syncwarp();
-    vprev_c = __shfl_sync(kFull, v, 31);
-    tprev2 = __shfl_sync(kFull, t, 30);
-    tprev = __shfl_sync(kFull, t, 31);
+#pragma unroll
+    for (int u = 0; u < D; ++u) {
+      const int i = base + 32 * u + lane;
+      if (i - lane >= L) break;  // warp-uniform
+      const bool active = i < L;
+      const W v = cur[u];
+      // the latest lower lane with the key, else the table as the window
+      // found it (a dead lane's key matches nothing and reads nothing)
+      const W pred1 = hit1[u] ? from1[u] : (active ? t1[k1[u]] : W(0));
+      const W pred2 = hit2[u] ? from2[u] : (active ? t2[k2[u]] : W(0));
+      if (active) {
+        x1[i] = v ^ pred1;
+        x2[i] = v ^ (vprev[u] + pred2);
+      }
+      __syncwarp();  // every lane read the tables as of the window's start
+      if (active && last1[u]) t1[k1[u]] = v;
+      if (active && last2[u]) t2[k2[u]] = s[u];
+      __syncwarp();
+    }
+#pragma unroll
+    for (int u = 0; u < D; ++u) cur[u] = nxt[u];
   }
 }
 
@@ -477,28 +563,234 @@ replay_kernel(const uint8_t* __restrict__ bcodes, const W* __restrict__ xors,
 }
 
 // ---------------------------------------------------------------------------
-// logshift: replaces _logshift_kernel (fp_pallas.py:275).
+// logshift (tt_logshift): replaces _logshift_kernel (fp_pallas.py:275).
 //
 // A word is shift << pb | payload (0 = dead). The network moves each live
 // word by `shift` lanes, left or right, and the caller guarantees that the
-// movement is monotone, so no two words share a destination. That is a
-// direct scatter: one thread per slot writes its payload to s -/+ shift into
-// an output zeroed first. Bound on the H100: device-memory bytes (one read,
-// one memset, one scattered write of 4 bytes per slot); the ceil(log2 S)
-// passes of the TPU network are gone.
+// movement is monotone: destinations rise with the source lane, so no two
+// words share one. A word that would leave the row is dropped.
+//
+// Bound on the H100: device-memory bytes, 8 a slot (the word read, the
+// payload written): 0.080 ms at (2048, 16384), 0.841 ms at (5376, 65536),
+// 1.683 ms at (10752, 65536). To stay near it every output word is written
+// exactly once, by the kernel, in full sectors (no memset before a 4-byte
+// scatter), and nothing per slot costs more than a few instructions (the
+// row comes from the block index, not from a 64-bit division). The design
+// (logshift_tile_kernel):
+//  * A block takes one tile of T source slots of one row, 16 bytes a thread
+//    and load, on the 16-byte grid of the row's address (the row's first and
+//    last vector are read word by word, so no byte outside the tensor is
+//    touched whatever the row's alignment).
+//  * Because destinations rise with the lane, tile t owns the output range
+//    from one past the last destination of any tile before it (0 if none) up
+//    to its own last destination; the row's last tile owns up to S. The
+//    ranges partition the row, so there is no word that two blocks write and
+//    none that nobody writes. A tile without a live word owns nothing and
+//    leaves at once. The others find the range's start by scanning back
+//    from their first slot until a live word turns up: the 256 slots before
+//    the tile are fetched together with the tile, which nearly always
+//    settles it; over a longer dead run the scan goes on 1024 slots a step.
+//    These are lines that the block of the tile before reads at about the
+//    same time, so L2 serves them.
+//  * The range is staged in shared memory, 2 T words at a time: zeroed
+//    (the first time while the loads are in flight), the tile's payloads
+//    scattered into it, then streamed out with 16-byte stores on the output
+//    row's 16-byte grid (its first and last vector word by word). A left
+//    compaction's range is rarely longer than T; a right expansion's, and
+//    the zero fill of a row's dead end, take as many rounds as they need.
+// What the tiles cost is the look-back over dead runs. The codecs' left
+// compactions have their live words spread along the row and pay next to
+// nothing. Their right expansions (bytes or slot ids packed at the front of
+// the row, moved out to their slots) leave the rest of the source row dead:
+// the row's last tile reads all of that again to find where its zero fill
+// begins, and the few live tiles write several tiles' worth each.
+// logshift_row_kernel is the second shape: a block per row with the whole
+// row staged (u32 payloads up to 58112 slots; u16 payloads, pb <= 16, up to
+// 116224), zeroed, scattered into and streamed out; one block a
+// multiprocessor at 65536 slots, but indifferent to where the live words
+// are. On an H100 80GB HBM3 at 700 W the tiles take 0.094 ms and the rows
+// 0.100 ms for the left compaction at (2048, 16384), 0.95 against 1.08 ms at
+// (5376, 65536); for the right expansion 0.098 against 0.100 ms and 1.28
+// against 1.08 ms. So tt_logshift gives a right expansion to the rows where
+// the stage holds the row, and everything else to the tiles.
 // ---------------------------------------------------------------------------
-__global__ void logshift_kernel(const uint32_t* __restrict__ word,
-                                uint32_t* __restrict__ out, long long n, int S,
-                                int pb, int nbits, int right) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const uint32_t w = word[idx];
-  if (!w) return;
-  const long long s = idx % S;
-  const long long shift = (w >> pb) & ((1u << nbits) - 1u);
-  const long long dest = right ? s + shift : s - shift;
-  if (dest < 0 || dest >= S) return;  // moved past the edge: dropped
-  out[idx - s + dest] = w & ((1u << pb) - 1u);
+constexpr int kShiftThreads = 256;
+constexpr int kRowThreads = 1024;
+constexpr int kMaxSlots = 1 << 30;
+
+// Destination + 1 of the word at slot s of its row; 0 for a dead word or
+// one that moves past an edge.
+__device__ __forceinline__ uint32_t dest1(uint32_t w, int s, int S, int pb,
+                                          uint32_t smask, int right) {
+  if (!w) return 0u;
+  const uint32_t shift = (w >> pb) & smask;
+  if (right) {
+    const uint32_t d = (uint32_t)s + shift;
+    return d < (uint32_t)S ? d + 1u : 0u;
+  }
+  return shift <= (uint32_t)s ? (uint32_t)s - shift + 1u : 0u;
+}
+
+// Words j .. j + 3 of a row of S words, row + j on the 16-byte grid; 0 for
+// what lies outside the row.
+__device__ __forceinline__ void load4(const uint32_t* row, int j, int S,
+                                      uint32_t (&q)[4]) {
+  if (j >= 0 && j + 4 <= S) {
+    const uint4 v = *reinterpret_cast<const uint4*>(row + j);
+    q[0] = v.x, q[1] = v.y, q[2] = v.z, q[3] = v.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      q[k] = (j + k >= 0 && j + k < S) ? row[j + k] : 0u;
+  }
+}
+
+// Words g .. g + 3 of an output row, row + g on the 16-byte grid, of which
+// [lo, hi) are this block's to write.
+__device__ __forceinline__ void store4(uint32_t* row, int g, int lo, int hi,
+                                       const uint32_t (&q)[4]) {
+  if (g >= lo && g + 4 <= hi) {
+    *reinterpret_cast<uint4*>(row + g) = make_uint4(q[0], q[1], q[2], q[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (g + k >= lo && g + k < hi) row[g + k] = q[k];
+  }
+}
+
+// A pointer's distance from the 16-byte grid, in words.
+__device__ __forceinline__ int off_grid(const void* p) {
+  return (int)(((unsigned long long)p >> 2) & 3ull);
+}
+
+// The largest a and the largest b of the block, in every thread; two
+// barriers.
+__device__ __forceinline__ void block_max2(uint32_t& a, uint32_t& b,
+                                           uint32_t (*red)[2]) {
+  a = __reduce_max_sync(kFull, a);
+  b = __reduce_max_sync(kFull, b);
+  if ((threadIdx.x & 31) == 0) {
+    red[threadIdx.x >> 5][0] = a;
+    red[threadIdx.x >> 5][1] = b;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kShiftThreads / 32; ++k)
+    a = max(a, red[k][0]), b = max(b, red[k][1]);
+  __syncthreads();
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kShiftThreads)
+logshift_tile_kernel(const uint32_t* __restrict__ word,
+                     uint32_t* __restrict__ out, int S, int pb, int nbits,
+                     int right, int tiles) {
+  constexpr int T = 4 * VEC * kShiftThreads;  // source slots of a tile
+  constexpr int W = 2 * T;                    // words of the stage
+  __shared__ __align__(16) uint32_t stage[W];
+  __shared__ uint32_t red[kShiftThreads / 32][2];
+  const int x = threadIdx.x;
+  const long long row = blockIdx.x / (unsigned)tiles;
+  const int tile = (int)(blockIdx.x - row * tiles);
+  const uint32_t* src = word + row * S;
+  uint32_t* dst = out + row * S;
+  const uint32_t smask = (1u << nbits) - 1u, pmask = (1u << pb) - 1u;
+  const int t0 = tile * T - off_grid(src);  // the tile's first slot
+
+  // the tile, the 256 slots before it, and meanwhile a zeroed stage
+  uint32_t q[VEC][4], d[VEC][4];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v)
+    load4(src, t0 + 4 * (v * kShiftThreads + x), S, q[v]);
+  int end = t0 - kShiftThreads;  // the look-back has come down to here
+  const uint32_t before = (end + x >= 0 && end + x < S) ? src[end + x] : 0u;
+  for (int i = x; 4 * i < W; i += kShiftThreads)
+    reinterpret_cast<uint4*>(stage)[i] = make_uint4(0u, 0u, 0u, 0u);
+  uint32_t mine = 0u;
+#pragma unroll
+  for (int v = 0; v < VEC; ++v)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      d[v][k] = dest1(q[v][k], t0 + 4 * (v * kShiftThreads + x) + k, S, pb,
+                      smask, right);
+      mine = max(mine, d[v][k]);
+    }
+  uint32_t seen = dest1(before, end + x, S, pb, smask, right);
+  block_max2(mine, seen, red);
+  // [lo, hi): from one past the last destination before the tile to one
+  // past the tile's last destination
+  const int hi = tile == tiles - 1 ? S : (int)mine;
+  if (hi == 0) return;  // no live word: the range is empty
+  while (seen == 0u && end > 0) {  // block-uniform
+    end -= 4 * kShiftThreads;
+    uint32_t p[4], none = 0u;
+    load4(src, end + 4 * x, S, p);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      seen = max(seen, dest1(p[k], end + 4 * x + k, S, pb, smask, right));
+    block_max2(seen, none, red);
+  }
+  const int lo = (int)seen;
+
+  const int mo = off_grid(dst);
+  bool zeroed = true;
+  for (int w0 = ((lo + mo) & ~3) - mo; w0 < hi; w0 += W) {
+    const int wn = hi - w0 < W ? hi - w0 : W;  // words of this round
+    if (!zeroed) {
+      __syncthreads();  // the round before has left the stage
+      for (int i = x; 4 * i < wn; i += kShiftThreads)
+        reinterpret_cast<uint4*>(stage)[i] = make_uint4(0u, 0u, 0u, 0u);
+      __syncthreads();
+    }
+    zeroed = false;
+#pragma unroll
+    for (int v = 0; v < VEC; ++v)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int at = (int)d[v][k] - 1 - w0;
+        if (d[v][k] && at >= 0 && at < wn) stage[at] = q[v][k] & pmask;
+      }
+    __syncthreads();
+    for (int i = x; 4 * i < wn; i += kShiftThreads) {
+      const uint4 v = reinterpret_cast<const uint4*>(stage)[i];
+      const uint32_t o[4] = {v.x, v.y, v.z, v.w};
+      store4(dst, w0 + 4 * i, lo, hi, o);
+    }
+  }
+}
+
+template <typename P>
+__global__ void __launch_bounds__(kRowThreads)
+logshift_row_kernel(const uint32_t* __restrict__ word,
+                    uint32_t* __restrict__ out, int S, int pb, int nbits,
+                    int right) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  P* stage = reinterpret_cast<P*>(smem_raw);  // S payloads, padded to 16 bytes
+  const int x = threadIdx.x;
+  const uint32_t* src = word + (long long)blockIdx.x * S;
+  uint32_t* dst = out + (long long)blockIdx.x * S;
+  const uint32_t smask = (1u << nbits) - 1u, pmask = (1u << pb) - 1u;
+  const int vecs = (int)(((long long)S * sizeof(P) + 15) / 16);
+  for (int i = x; i < vecs; i += kRowThreads)
+    reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  for (int j = 4 * x - off_grid(src); j < S; j += 4 * kRowThreads) {
+    uint32_t q[4];
+    load4(src, j, S, q);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t at = dest1(q[k], j + k, S, pb, smask, right);
+      if (at) stage[at - 1u] = (P)(q[k] & pmask);
+    }
+  }
+  __syncthreads();
+  for (int g = 4 * x - off_grid(dst); g < S; g += 4 * kRowThreads) {
+    uint32_t o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      o[k] = (g + k >= 0 && g + k < S) ? (uint32_t)stage[g + k] : 0u;
+    store4(dst, g, 0, S, o);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -558,15 +850,46 @@ int warps_per_block(K* kernel, long long per_warp, int* warps,
 template <typename W>
 int launch_predict(const void* values, void* xor1, void* xor2, int C, int L,
                    int e1, int e2, void* stream) {
+  constexpr int D = kPredictDepth;
   int warps;
   long long smem;
   const int rc = warps_per_block(
-      predict_kernel<W>, ((1ll << e1) + (1ll << e2)) * (long long)sizeof(W),
+      predict_kernel<W, D>, ((1ll << e1) + (1ll << e2)) * (long long)sizeof(W),
       &warps, &smem);
   if (rc) return rc;
   const int blocks = (C + warps - 1) / warps;
-  predict_kernel<W><<<blocks, 32 * warps, smem, (cudaStream_t)stream>>>(
+  predict_kernel<W, D><<<blocks, 32 * warps, smem, (cudaStream_t)stream>>>(
       (const W*)values, (W*)xor1, (W*)xor2, C, L, e1, e2);
+  return (int)cudaGetLastError();
+}
+
+int launch_logshift_tiles(const void* word, void* out, long long C, int S,
+                          int pb, int nbits, int right, bool on_grid,
+                          void* stream) {
+  constexpr int T = 4 * kShiftVec * kShiftThreads;
+  // rows off the 16-byte grid start up to 3 slots into their first tile
+  const int tiles = (int)(((long long)S + (on_grid ? 0 : 3) + T - 1) / T);
+  if (C * tiles > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  logshift_tile_kernel<kShiftVec>
+      <<<(unsigned)(C * tiles), kShiftThreads, 0, (cudaStream_t)stream>>>(
+          (const uint32_t*)word, (uint32_t*)out, S, pb, nbits, right, tiles);
+  return (int)cudaGetLastError();
+}
+
+template <typename P>
+int launch_logshift_rows(const void* word, void* out, long long C, int S,
+                         int pb, int nbits, int right, void* stream) {
+  const long long smem = ((long long)S * (long long)sizeof(P) + 15) / 16 * 16;
+  if (smem > kMaxSmem || C > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  if (smem > kDefaultSmem) {
+    cudaError_t e = cudaFuncSetAttribute(
+        logshift_row_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  logshift_row_kernel<P>
+      <<<(unsigned)C, kRowThreads, smem, (cudaStream_t)stream>>>(
+          (const uint32_t*)word, (uint32_t*)out, S, pb, nbits, right);
   return (int)cudaGetLastError();
 }
 
@@ -625,7 +948,7 @@ int tt_predict_xors(const void* values, void* xor1, void* xor2, int C, int L,
   return launch_predict<uint32_t>(values, xor1, xor2, C, L, e1, e2, stream);
 }
 
-// values, xor1, xor2: (C, L) u64. Exponents normalised (even, <= 30).
+// values, xor1, xor2: (C, L) u64; the rest as tt_predict_xors.
 int tt_predict64_xors(const void* values, void* xor1, void* xor2, int C,
                       int L, int e1, int e2, void* stream) {
   return launch_predict<uint64_t>(values, xor1, xor2, C, L, e1, e2, stream);
@@ -671,15 +994,26 @@ int tt_replay64(const void* bcodes, const void* xors, void* out, int C, int L,
                                  stream);
 }
 
-// word, out: (C, S) u32; pb + ceil(log2 S) <= 32.
+// word, out: (C, S) u32; pb >= 1, pb + nbits <= 32, S <= 2^30. A right
+// expansion whose row fits the stage goes to a block per row, everything
+// else to the tiles.
 int tt_logshift(const void* word, void* out, long long C, int S, int pb,
                 int nbits, int right, void* stream) {
-  const long long n = C * S;
-  cudaError_t e = cudaMemsetAsync(out, 0, n * 4, (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  logshift_kernel<<<grid_1d(n, 256), 256, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)word, (uint32_t*)out, n, S, pb, nbits, right);
-  return (int)cudaGetLastError();
+  if (S < 1 || S > kMaxSlots || pb < 1 || nbits < 1 || pb + nbits > 32)
+    return (int)cudaErrorInvalidValue;
+  const bool wide = (long long)S * 4 <= kMaxSmem;  // u32 payloads fit
+  const bool narrow = pb <= 16 && (long long)S * 2 <= kMaxSmem;
+  const bool rows = kShiftKernel ? kShiftKernel < 0 : right != 0;
+  if (rows && wide)
+    return launch_logshift_rows<uint32_t>(word, out, C, S, pb, nbits, right,
+                                          stream);
+  if (rows && narrow)
+    return launch_logshift_rows<uint16_t>(word, out, C, S, pb, nbits, right,
+                                          stream);
+  // every row starts on the 16-byte grid when the first does and S % 4 == 0
+  const bool on_grid = ((unsigned long long)word & 15ull) == 0 && S % 4 == 0;
+  return launch_logshift_tiles(word, out, C, S, pb, nbits, right, on_grid,
+                               stream);
 }
 
 // carrier, payload, out: (C, S) u32.

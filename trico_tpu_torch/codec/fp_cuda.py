@@ -355,6 +355,10 @@ def logshift_plain(word: torch.Tensor, pb: int, direction: str):
     return _u32.narrow(out)
 
 
+# slots of the longest row a logshift launch takes (kMaxSlots in fp_kernels.cu)
+MAX_SLOTS = 1 << 30
+
+
 def logshift(word: torch.Tensor, pb: int, direction: str):
     """Monotone left compaction or right expansion of (C, S) packed words;
     the caller guarantees that no two live words share a destination."""
@@ -367,6 +371,8 @@ def logshift(word: torch.Tensor, pb: int, direction: str):
                          f"bits do not fit a u32 word")
     if _on_cpu(word):
         return logshift_plain(word, pb, direction)
+    if S > MAX_SLOTS:
+        raise ValueError(f"logshift: rows of {S} slots exceed {MAX_SLOTS}")
     out = torch.empty_like(word)
     if word.numel():
         _launch("logshift", _lib().tt_logshift, word.data_ptr(),

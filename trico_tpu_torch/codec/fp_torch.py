@@ -1,8 +1,8 @@
 """The f32 chunk-parallel FCM/DFCM codec in the v2 "tpu" layout, in PyTorch.
 
-Counterpart of the v2 slice of ``trico_tpu/codec/fp_jax.py``; the names
-match. A chunk of L values is one independent reference FP substream with its
-group tags hoisted to the front:
+Counterpart of ``trico_tpu/codec/fp_jax.py``; the names match. A chunk of L
+values is one independent reference FP substream, in one of two layouts. The
+v2 "tpu" layout hoists the group tags to the front:
 
     [u8 hash_info][u32 BE count][3*L/8 tag bytes][residual bytes]
 
@@ -12,7 +12,12 @@ then the pack: tags, then the residual region through :mod:`.pack_funnel`.
 The adaptive encode predicts every candidate (grouped by e2, with the
 ``fcm_multi_xors`` kernel for extra FCM exponents) and keeps each chunk's
 smallest. Decode is the parse (two ``logshift`` kernel passes), then the
-replay (``replay`` kernel). Device tensors carry u32 words as int32 bits
+replay (``replay`` kernel). The reference layout keeps each group's 3 tag
+bytes in front of its residual bytes, as the reference library writes them:
+``pack_f32_chunks`` lays every candidate byte out in emission order and
+compacts the row with one ``logshift`` pass; ``parse_f32_chunks`` finds the
+tags, whose positions depend on the data, by pointer doubling and gathers
+the residual bytes. Device tensors carry u32 words as int32 bits
 (:mod:`trico_tpu_torch._u32`); the host functions at the end take and
 return NumPy arrays, like their JAX counterparts.
 
@@ -102,24 +107,33 @@ def predict_f32_chunks(values, e1: int = 4, e2: int = 10):
         values, *_norm_exponents(e1, e2)))
 
 
+def _header_bytes(L: int, e1: int, e2: int, dev) -> torch.Tensor:
+    """The 5 bytes in front of a chunk: hash_info, then L big-endian."""
+    return torch.tensor([hash_info(e1, e2), (L >> 24) & 0xFF, (L >> 16) & 0xFF,
+                         (L >> 8) & 0xFF, L & 0xFF], dtype=torch.uint8, device=dev)
+
+
+def _tag_bytes(bc: torch.Tensor) -> torch.Tensor:
+    """(C, L) int32 bcodes → (C, L/8, 3) int32 tag bytes: eight 3-bit codes
+    a group, slot 0 in the low bits, stored big-endian."""
+    C, L = bc.shape
+    shifts = 3 * torch.arange(8, dtype=torch.int32, device=bc.device)
+    tag24 = (bc.reshape(C, L // 8, 8) << shifts).sum(dim=2, dtype=torch.int32)
+    return torch.stack([(tag24 >> 16) & 0xFF, (tag24 >> 8) & 0xFF, tag24 & 0xFF],
+                       dim=2)
+
+
 def pack_f32_chunks_v2(bcode, res, e1: int = 4, e2: int = 10):
     """(C, L) (bcode, res) → ((C, B) uint8 v2 payloads, (C,) int32 sizes)."""
     e1, e2 = _norm_exponents(e1, e2)
     C, L = bcode.shape
     G = L // 8
     B = f32_max_chunk_bytes(L)
-    dev = bcode.device
     bc = bcode.to(torch.int32)
     length = _glen32(bc)
     total = 5 + 3 * G + length.sum(dim=1, dtype=torch.int32)
-
-    hdr = torch.tensor([hash_info(e1, e2), (L >> 24) & 0xFF, (L >> 16) & 0xFF,
-                        (L >> 8) & 0xFF, L & 0xFF], dtype=torch.uint8, device=dev)
-    # tag: eight 3-bit codes, slot 0 in the low bits, stored big-endian
-    shifts = 3 * torch.arange(8, dtype=torch.int32, device=dev)
-    tag24 = (bc.reshape(C, G, 8) << shifts).sum(dim=2, dtype=torch.int32)
-    tags = torch.stack([(tag24 >> 16) & 0xFF, (tag24 >> 8) & 0xFF, tag24 & 0xFF],
-                       dim=2).reshape(C, 3 * G).to(torch.uint8)
+    hdr = _header_bytes(L, e1, e2, bcode.device)
+    tags = _tag_bytes(bc).reshape(C, 3 * G).to(torch.uint8)
     region, _ = region_bytes_f32(length, res)
     out = torch.cat([hdr.expand(C, 5), tags, region], dim=1)
     assert out.shape == (C, B)
@@ -286,6 +300,130 @@ def decode_f32_chunks_v2(payloads, L: int, e1: int = 4, e2: int = 10):
     return replay_f32_chunks(bcodes, xors, e1, e2)
 
 
+# ---------------------------------------------------------------------------
+# the reference layout on the device (fp_jax.py:348-551)
+# ---------------------------------------------------------------------------
+
+
+def pack_f32_chunks(bcode, res, e1: int = 4, e2: int = 10):
+    """(C, L) (bcode, res) → ((C, B) uint8 reference-layout payloads, (C,)
+    int32 sizes).
+
+    Every byte the chunk may emit is laid out in emission order: 5 header
+    bytes, then for each group of 8 values its 3 tag bytes and 32 residual
+    byte candidates, of which the first ``length`` of each value are live.
+    A candidate's distance to its place in the stream never falls along the
+    row, so one monotone left compaction (``logshift``, 8 payload bits) over
+    the S = 5 + 35 L / 8 candidates, which is also B, writes the payload;
+    where nothing lands, past the chunk's size, it leaves zeros."""
+    e1, e2 = _norm_exponents(e1, e2)
+    C, L = bcode.shape
+    G = L // 8
+    dev = bcode.device
+    bc = bcode.to(torch.int32)
+    length = _glen32(bc)
+    cum = torch.cumsum(length, dim=1, dtype=torch.int32)
+    res_before = cum - length
+    total = 5 + 3 * G + cum[:, -1]
+
+    # a group's tags move left by the residual candidates left out before it
+    tag_move = (32 * torch.arange(G, dtype=torch.int32, device=dev)[None, :]
+                - res_before[:, ::8])[:, :, None].expand(C, G, 3)
+    # residual bytes, big-endian, the low `length` bytes of each word (the
+    # shift is arithmetic, which leaves the low byte as a logical one would)
+    k = torch.arange(4, dtype=torch.int32, device=dev)
+    shift = 8 * (length[:, :, None] - 1 - k).clamp(0, 3)
+    res_bytes = (res[:, :, None] >> shift) & 0xFF
+    res_valid = k < length[:, :, None]
+    i = torch.arange(L, dtype=torch.int32, device=dev)[None, :, None]
+    res_move = (4 * i - res_before[:, :, None]).expand(C, L, 4)
+
+    def rows(head, tag, residual):
+        """[head | per group (3 tag entries, 32 residual entries)]."""
+        grp = torch.cat([tag, residual.reshape(C, G, 32)], dim=2)
+        return torch.cat([head, grp.reshape(C, 35 * G)], dim=1)
+
+    byte = rows(_header_bytes(L, e1, e2, dev).to(torch.int32).expand(C, 5),
+                _tag_bytes(bc), res_bytes)
+    move = rows(torch.zeros((C, 5), dtype=torch.int32, device=dev),
+                tag_move, res_move)
+    valid = rows(torch.ones((C, 5), dtype=torch.bool, device=dev),
+                 torch.ones((C, G, 3), dtype=torch.bool, device=dev), res_valid)
+    out = _compact_monotone(byte, move, valid, 8)
+    assert out.shape == (C, f32_max_chunk_bytes(L))
+    return out.to(torch.uint8), total
+
+
+def encode_f32_chunks(values, e1: int = 4, e2: int = 10):
+    """(C, L) int32 words → ((C, B) uint8 reference-layout payloads, (C,)
+    int32 sizes): each row a whole reference FP substream of its chunk."""
+    bcode, res = predict_f32_chunks(values, e1, e2)
+    return pack_f32_chunks(bcode, res, e1, e2)
+
+
+def _quad_lengths(dev) -> torch.Tensor:
+    """Residual bytes of four 3-bit bcodes, by their 12 bits."""
+    q = torch.arange(1 << 12, dtype=torch.int32, device=dev)
+    return sum(_glen32((q >> s) & 7) for s in (0, 3, 6, 9))
+
+
+def parse_f32_chunks(payloads, L: int, e1: int = 4, e2: int = 10):
+    """(C, B) uint8 reference-layout payloads → ((C, L) uint8 bcodes, (C, L)
+    int32 xors).
+
+    A group's tag sits behind the residual bytes of the groups before it.
+    Were a tag to start at byte p, the next would start at ``p + 3 +`` the
+    residual bytes that tag announces: that is a jump table over the byte
+    positions, and the tags are the orbit of position 5. ``fp_jax`` walks
+    the orbit group by group, because gathers are slow on a TPU; here the
+    table is squared ceil(log2 G) times (pointer doubling), each round
+    doubling the known tag positions, and the residual bytes are one gather
+    of 4 per value. Bytes past the payload read as byte B - 1."""
+    C, B = payloads.shape
+    if L % 8:
+        raise ValueError(f"chunk length must be a multiple of 8, got {L}")
+    if B < f32_max_chunk_bytes(L):
+        raise ValueError(f"payload rows of {B} bytes are too short for "
+                         f"chunks of {L} values")
+    G = L // 8
+    dev = payloads.device
+    p32 = payloads.to(torch.int32)
+    wide = torch.nn.functional.pad(p32, (0, 2))
+    tag_at = (wide[:, :B] << 16) | (wide[:, 1 : B + 1] << 8) | wide[:, 2:]
+    quad = _quad_lengths(dev)
+    here = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+    jump = (here + 3 + quad[tag_at & 0xFFF] + quad[tag_at >> 12]
+            ).clamp(max=B - 1).to(torch.int64)
+    pos = torch.full((C, 1), 5, dtype=torch.int64, device=dev)
+    while pos.shape[1] < G:
+        pos = torch.cat([pos, torch.gather(jump, 1, pos)], dim=1)
+        if pos.shape[1] < G:
+            jump = torch.gather(jump, 1, jump)
+    pos = pos[:, :G]
+
+    tag = torch.gather(tag_at, 1, pos)
+    shifts = 3 * torch.arange(8, dtype=torch.int32, device=dev)
+    bcodes = (tag[:, :, None] >> shifts) & 7  # (C, G, 8)
+    lens = _glen32(bcodes)
+    starts = pos[:, :, None] + 3 + (torch.cumsum(lens, dim=2) - lens)
+    bcodes, lens, starts = (t.reshape(C, L) for t in (bcodes, lens, starts))
+
+    k = torch.arange(4, dtype=torch.int32, device=dev)
+    idx = (starts[:, :, None] + k).clamp(max=B - 1)
+    bytes4 = torch.gather(p32, 1, idx.reshape(C, 4 * L)).reshape(C, L, 4)
+    shift = 8 * (lens[:, :, None] - 1 - k).clamp(0, 3)
+    part = torch.where(k < lens[:, :, None], bytes4 << shift, 0)
+    xors = part[..., 0] | part[..., 1] | part[..., 2] | part[..., 3]
+    return bcodes.to(torch.uint8), xors
+
+
+def decode_f32_chunks(payloads, L: int, e1: int = 4, e2: int = 10):
+    """(C, B) uint8 reference-layout payloads → (C, L) int32 words: parse,
+    then replay."""
+    bcodes, xors = parse_f32_chunks(payloads, L, e1, e2)
+    return replay_f32_chunks(bcodes, xors, e1, e2)
+
+
 def relayout_f32_v2_to_v1(payload: np.ndarray) -> np.ndarray:
     """Host reorder of one v2-layout substream to the reference layout
     (NumPy; the same function as ``fp_jax.relayout_f32_v2_to_v1``)."""
@@ -312,9 +450,10 @@ def relayout_f32_v2_to_v1(payload: np.ndarray) -> np.ndarray:
 
 # ---------------------------------------------------------------------------
 # host entry points: NumPy in, NumPy out. layout="tpu" is v2 chunks, all on
-# the device; layout="ref" is reference-layout chunks, whose pack and parse
-# run in the C++ host library around the device predictor and replay
-# (fp_jax.py:1007-1025, 1071-1088).
+# the device. layout="ref" is reference-layout chunks: the device predictor
+# and replay around the C++ host library's pack and parse, or, where the
+# caller asks (device_pack / device_parse) or the library is not built, the
+# device pack and parse (fp_jax.py:1007-1025, 1071-1088).
 # ---------------------------------------------------------------------------
 
 
@@ -324,13 +463,15 @@ def _check_layout(layout: str) -> None:
 
 
 def _host_lib():
-    """The C++ host library, which packs and parses reference-layout chunks;
-    without it the reference layout needs the device pack and parse, which
-    are not ported."""
+    """The C++ host library, which packs and parses the reference-layout
+    chunks of ``fp64_torch``. f64 has no device pack or parse of that layout
+    (nor has ``fp64_jax``): without the library ``chunked`` host-codes such
+    chunks and never comes here."""
     if not native.available():
         raise NotImplementedError(
-            'layout="ref" without the C++ host library needs the device pack '
-            "and parse of the reference layout (ROADMAP queue 1 item 8)")
+            'f64 chunks in layout="ref" are packed and parsed by the C++ '
+            "host library, which is not built; encode_chunked and "
+            "decode_chunked host-code such chunks instead")
     return native.get_lib()
 
 
@@ -375,23 +516,28 @@ def _split(values_u32: np.ndarray, chunk_len: int):
 
 
 def encode_f32(values_u32: np.ndarray, chunk_len: int, e1: int = 4,
-               e2: int = 10, layout: str = "tpu", *, device="cuda"):
+               e2: int = 10, layout: str = "tpu", *, device_pack: bool = False,
+               device="cuda"):
     """Encode a flat uint32 stream in chunks of ``chunk_len`` on ``device``.
 
     Returns (payloads (C, B) uint8, sizes (C,) int64, tail_values); the tail
-    (n % chunk_len values) is left for the caller's host codec."""
+    (n % chunk_len values) is left for the caller's host codec. Reference-
+    layout chunks are packed by the C++ host library, or on the device
+    (:func:`pack_f32_chunks`) when ``device_pack`` is set or the library is
+    not built; the bytes are the same."""
     _check_layout(layout)
     C, chunks, tail = _split(values_u32, chunk_len)
     B = f32_max_chunk_bytes(chunk_len)
     if C == 0:
         return np.zeros((0, B), np.uint8), np.zeros(0, np.int64), tail
     x = _u32.from_numpy(chunks).to(device)
-    if layout == "ref":
-        fn = _host_lib().tt_fp32_pack_chunks
+    if layout == "ref" and not device_pack and native.available():
+        fn = native.get_lib().tt_fp32_pack_chunks
         e1, e2 = _norm_exponents(e1, e2)
         return (*pack_native(fn, *predict_f32_chunks(x, e1, e2), chunk_len,
                              e1, e2, B), tail)
-    out, sizes = encode_f32_chunks_v2(x, e1, e2)
+    encode = encode_f32_chunks if layout == "ref" else encode_f32_chunks_v2
+    out, sizes = encode(x, e1, e2)
     return out.cpu().numpy(), sizes.cpu().numpy().astype(np.int64), tail
 
 
@@ -421,17 +567,21 @@ def encode_f32_adaptive(values_u32: np.ndarray, chunk_len: int,
 
 
 def decode_f32(payloads: np.ndarray, chunk_len: int, e1: int = 4,
-               e2: int = 10, layout: str = "tpu", *, device="cuda") -> np.ndarray:
+               e2: int = 10, layout: str = "tpu", *, device_parse: bool = False,
+               device="cuda") -> np.ndarray:
     """Decode (C, B) padded chunk payloads of one layout → flat uint32
-    values."""
+    values. Reference-layout chunks are parsed by the C++ host library, or on
+    the device (:func:`parse_f32_chunks`) when ``device_parse`` is set or
+    the library is not built."""
     _check_layout(layout)
     if len(payloads) == 0:
         return np.zeros(0, np.uint32)
-    if layout == "ref":
-        bc, xo = parse_native(_host_lib().tt_fp32_parse_chunks, payloads,
+    if layout == "ref" and not device_parse and native.available():
+        bc, xo = parse_native(native.get_lib().tt_fp32_parse_chunks, payloads,
                               chunk_len, np.uint32)
         vals = replay_f32_chunks(torch.from_numpy(bc).to(device),
                                  _u32.from_numpy(xo).to(device), e1, e2)
         return _u32.to_numpy(vals).reshape(-1)
+    decode = decode_f32_chunks if layout == "ref" else decode_f32_chunks_v2
     p = torch.from_numpy(np.ascontiguousarray(payloads, np.uint8)).to(device)
-    return _u32.to_numpy(decode_f32_chunks_v2(p, chunk_len, e1, e2)).reshape(-1)
+    return _u32.to_numpy(decode(p, chunk_len, e1, e2)).reshape(-1)

@@ -1,0 +1,267 @@
+"""Measure the ``logshift`` and ``predict_xors`` / ``predict64_xors`` kernels
+on one NVIDIA GPU, beside an earlier commit's.
+
+    python3 -m trico_tpu_torch.tools.kernel_compare [--parent OLD/fp_kernels.cu]
+                                                    [--skip-bp]
+
+Builds the kernels and takes their inputs from the main paths, at full size:
+
+* ``logshift``: the two calls of the f32 parse of the 8M-value stream
+  ((2048, 16384): slot ids to rank order, left, then bytes to slots, right),
+  the call of the reference layout's device pack ((2048, 17925), left, rows
+  4 bytes off the 16-byte grid), and the three calls each of a BP32 and a
+  BP64 round trip of the 88,080,384-index triangle stream ((5376, 65536) and
+  (10752, 65536); ``--skip-bp`` leaves these out);
+* ``predict_xors`` at (2048, 4096) u32 words and ``predict64_xors`` at
+  (4096, 4096) u64 words, exponents (4,6).
+
+Each kernel is held against its plain version (in blocks of rows), then
+timed with CUDA events, with the share of the bytes bound (each input read
+once, each output written once, at 3.35 TB/s) and, for the predictors, the
+cycles one warp spends on a window of 32 values. The library fixes the
+tile of ``logshift`` (2048 source slots), its choice between tiles and a
+block per row, and the predictors' fetch depth (4 windows); to show what
+the other values cost, the tool builds copies of ``fp_kernels.cu`` with
+``-DTT_SHIFT_VEC``, ``-DTT_SHIFT_KERNEL`` and ``-DTT_PREDICT_DEPTH`` set
+otherwise (all at once, one nvcc each), holds each against the plain
+version too and times it beside the library's, each through its entry
+point with the outputs allocated once (the wrapper's time, which the first
+line of a kernel gives, includes its host work). With ``--parent`` the same
+calls go to another ``fp_kernels.cu`` (built here with the same flags, the
+same entry points), its output must be the same, and the times are taken
+in turns: parent, this, this, parent.
+
+Every line names the card and its power limit. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import _u32, _u64
+from ..codec import _build, bp_torch, fp_cuda, fp_torch
+from .replay_sweep import (EXP, HBM_BYTES_PER_S, L, _smi, finish_build,
+                           load_parent, start_build, streams, time_ms)
+
+# the entry points called in another build: those of this tree's library
+ENTRIES = {name: _build._SIGNATURES["fp_kernels"][name]
+           for name in ("tt_logshift", "tt_predict_xors", "tt_predict64_xors")}
+PLAIN_BLOCK = 1 << 26  # words a plain logshift call takes at once
+# the library itself, called as the other builds are: its entry point with
+# outputs allocated once, without the wrapper's host time
+LIBRARY = "the library"
+# builds of this tree's source with another fixed choice
+SHIFT_VARIANTS = {"tiles of 1024": ["-DTT_SHIFT_VEC=1", "-DTT_SHIFT_KERNEL=1"],
+                  "tiles of 2048": ["-DTT_SHIFT_KERNEL=1"],
+                  "tiles of 4096": ["-DTT_SHIFT_VEC=4", "-DTT_SHIFT_KERNEL=1"],
+                  "block per row": ["-DTT_SHIFT_KERNEL=-1"]}
+PREDICT_VARIANTS = {f"depth {d}": [f"-DTT_PREDICT_DEPTH={d}"] for d in (1, 2, 8)}
+
+
+def fullmesh_indices() -> np.ndarray:
+    """The triangle stream of bench.py:231-236: 3 * 28 * 2^20 u32 indices."""
+    i = np.arange(3 * (28 << 20), dtype=np.uint32)
+    return i // 3 + (i % 3) * 7 + i % 1024
+
+
+def logshift_calls(run) -> list:
+    """The (word, pb, direction) of every ``logshift`` call ``run()`` makes."""
+    seen, real = [], fp_cuda.logshift
+
+    def record(word, pb, direction):
+        seen.append((word.clone(), pb, direction))
+        return real(word, pb, direction)
+
+    fp_cuda.logshift = record
+    try:
+        run()
+    finally:
+        fp_cuda.logshift = real
+    return seen
+
+
+def plain_logshift(word, pb, direction):
+    step = max(1, PLAIN_BLOCK // word.shape[1])
+    return torch.cat([fp_cuda.logshift_plain(word[i : i + step], pb, direction)
+                      for i in range(0, word.shape[0], step)])
+
+
+def turns(parent, this) -> str:
+    return " / ".join(f"{time_ms(f):.4f}" for f in (parent, this, this, parent))
+
+
+def raw_logshift(lib, word, pb, direction):
+    """``tt_logshift`` of another build on ``word``: (call, its output)."""
+    C, S = word.shape
+    out = torch.empty_like(word)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        rc = lib.tt_logshift(word.data_ptr(), out.data_ptr(), C, S, pb,
+                             fp_cuda._nbits(S), int(direction == "right"),
+                             stream)
+        assert rc == 0, rc
+
+    return call, (out,)
+
+
+def raw_predict(lib, name, words):
+    """``tt_<name>`` of another build on ``words``: (call, its outputs)."""
+    x1, x2 = torch.empty_like(words), torch.empty_like(words)
+    fn = getattr(lib, f"tt_{name}")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        rc = fn(words.data_ptr(), x1.data_ptr(), x2.data_ptr(), *words.shape,
+                *EXP, stream)
+        assert rc == 0, rc
+
+    return call, (x1, x2)
+
+
+def others(what, this, want, builds, parent, card) -> bool:
+    """Hold every other build's (call, outputs) against ``want``, print its
+    time, and time the parent's in turns with ``this``."""
+    row = []
+    for label, (call, outs) in builds.items():
+        call()
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, w) for o, w in zip(outs, want)):
+            print(f"{what}, {label}: differs from the plain version",
+                  file=sys.stderr)
+            return False
+        row.append(f"{label}: {time_ms(call):.4f}")
+    print(f"  {what} ms, entry point called directly: {', '.join(row)} [{card}]",
+          flush=True)
+    if parent is not None:
+        call, outs = parent
+        call()
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, w) for o, w in zip(outs, want)):
+            print(f"{what}: the parent differs", file=sys.stderr)
+            return False
+        print(f"  {what} parent / this / this / parent: "
+              + turns(call, this) + f" ms [{card}]", flush=True)
+    return True
+
+
+def compare_logshift(what, word, pb, direction, variants, parent, card) -> bool:
+    C, S = word.shape
+    want = plain_logshift(word, pb, direction)
+    bound = 8 * word.numel() / HBM_BYTES_PER_S * 1e3
+    live = int((word != 0).sum().item())
+
+    def this():
+        return fp_cuda.logshift(word, pb, direction)
+
+    if not torch.equal(this(), want):
+        print(f"logshift {what}: differs from the plain version", file=sys.stderr)
+        return False
+    print(f"logshift {what} ({C}, {S}) pb={pb} {direction}, "
+          f"{100 * live / word.numel():.1f}% live: exact; {time_ms(this):.4f} ms; "
+          f"bytes bound {bound:.4f} ms [{card}]", flush=True)
+    return others(f"logshift {what}", this, (want,),
+                  {k: raw_logshift(v, word, pb, direction)
+                   for k, v in {LIBRARY: _build.lib(), **variants}.items()},
+                  raw_logshift(parent, word, pb, direction) if parent else None, card)
+
+
+def compare_predict(name, words, variants, parent, card) -> bool:
+    kern = getattr(fp_cuda, name)
+    plain = getattr(fp_cuda, f"{name}_plain")
+    C = words.shape[0]
+    want = [torch.cat(p) for p in zip(*(plain(words[i : i + 512], *EXP)
+                                        for i in range(0, C, 512)))]
+    bound = 3 * words.numel() * words.element_size() / HBM_BYTES_PER_S * 1e3
+    mhz = float(_smi("clocks.sm").split()[0])
+
+    def this():
+        return kern(words, *EXP)
+
+    if not all(torch.equal(g, w) for g, w in zip(this(), want)):
+        print(f"{name}: differs from the plain version", file=sys.stderr)
+        return False
+    own = time_ms(this)
+    print(f"{name} at ({C}, {L}), {EXP}: exact; {own:.4f} ms; "
+          f"bytes bound {bound:.4f} ms, {100 * bound / own:.1f}% of it reached; "
+          f"{own * 1e-3 * mhz * 1e6 / (L // 32):.0f} cycles per window and warp at "
+          f"{mhz:.0f} MHz (all {C} warps resident) [{card}]", flush=True)
+    for c in (1, 64, 256):
+        print(f"  {name} at ({c}, {L}): {time_ms(lambda: kern(words[:c], *EXP)):.4f} ms",
+              flush=True)
+    return others(name, this, want,
+                  {k: raw_predict(v, name, words)
+                   for k, v in {LIBRARY: _build.lib(), **variants}.items()},
+                  raw_predict(parent, name, words) if parent else None, card)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path,
+                    help="an earlier fp_kernels.cu to time beside this one")
+    ap.add_argument("--skip-bp", action="store_true",
+                    help="leave out the 65536-slot calls of the BP codecs")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_compare: CUDA is not available", file=sys.stderr)
+        return 1
+    card = _smi("name,power.limit")
+    print(f"gpu: {card}", flush=True)
+    report = _build.build_all()
+    show = 0  # the two kernels' entries in the -Xptxas -v report
+    for line in report["fp_kernels"]["log"].splitlines():
+        show = 3 if "logshift" in line or "predict_kernel" in line else show - 1
+        if show > 0:
+            print(f"  ptxas: {line.strip()}")
+    source = _build.SOURCES["fp_kernels"]
+    started = {k: start_build(source, d)
+               for k, d in {**SHIFT_VARIANTS, **PREDICT_VARIANTS}.items()}
+    built = {k: finish_build(b, ENTRIES) for k, b in started.items()}
+    shifts = {k: built[k] for k in SHIFT_VARIANTS}
+    depths = {k: built[k] for k in PREDICT_VARIANTS}
+    lib = load_parent(args.parent, ENTRIES) if args.parent else None
+
+    x32, x64 = streams()
+    ok = compare_predict("predict_xors", x32, depths, lib, card)
+    ok = compare_predict("predict64_xors", x64, depths, lib, card) and ok
+    del x64
+
+    payloads, _ = fp_torch.encode_f32_chunks_v2(x32, *EXP)
+    bcode, res = fp_torch.predict_f32_chunks(x32, *EXP)
+    cases = [(f"f32 parse {i + 1}", *c) for i, c in enumerate(logshift_calls(
+        lambda: fp_torch.parse_f32_chunks_v2(payloads, L, *EXP)))]
+    cases += [("reference-layout pack", *c) for c in logshift_calls(
+        lambda: fp_torch.pack_f32_chunks(bcode, res, *EXP))]
+    for what, word, pb, direction in cases:
+        ok = compare_logshift(what, word, pb, direction, shifts, lib, card) and ok
+    del cases, payloads, bcode, res, x32
+    if not args.skip_bp:
+        tflat = fullmesh_indices()
+        for what, words, enc, dec in (
+                ("BP32", _u32.from_numpy(tflat.reshape(-1, 16384)),
+                 bp_torch.encode_bp32_chunks, bp_torch.decode_bp32_chunks),
+                ("BP64", _u64.from_numpy(tflat.astype(np.uint64).reshape(-1, 8192)),
+                 bp_torch.encode_bp64_chunks, bp_torch.decode_bp64_chunks)):
+            words = words.cuda()
+
+            def round_trip():
+                p, _ = enc(words)
+                assert torch.equal(dec(p, words.shape[1]), words)
+
+            calls = logshift_calls(round_trip)
+            del words
+            for i, (word, pb, direction) in enumerate(calls):
+                ok = compare_logshift(f"{what} call {i + 1}", word, pb, direction,
+                                      shifts, lib, card) and ok
+            del calls
+            torch.cuda.empty_cache()
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -86,18 +86,40 @@ def bound_ms(words) -> float:
     return n * (1 + 2 * words.element_size()) / HBM_BYTES_PER_S * 1e3
 
 
-def load_parent(cu: Path):
-    """Another fp_kernels.cu, built with this tree's flags; its replay entry
-    points have the signature (bcodes, xors, out, C, L, e1, e2, stream)."""
-    so = Path(tempfile.mkdtemp(prefix="replay_parent_")) / "libparent.so"
-    subprocess.run([_build._nvcc(), *_build.FLAGS, str(cu), "-o", str(so)],
-                   check=True, capture_output=True)
+def start_build(cu: Path, defines=()):
+    """Start nvcc on an fp_kernels.cu with this tree's flags and ``defines``
+    (``-DNAME=value`` strings); returns (process, library path)."""
+    so = Path(tempfile.mkdtemp(prefix="kernels_other_")) / "libother.so"
+    cmd = [_build._nvcc(), *_build.FLAGS, *defines, str(cu), "-o", str(so)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), so
+
+
+def finish_build(build, signatures: dict):
+    """Wait for a build of :func:`start_build` and load it; ``signatures``
+    gives the ctypes argument types of the entry points that are called."""
+    proc, so = build
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc exited {proc.returncode}:\n{log}")
     lib = ctypes.CDLL(str(so))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.tt_replay, lib.tt_replay64):
-        fn.argtypes = [P, P, P, I, I, I, I, P]
-        fn.restype = I
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
+
+
+def load_parent(cu: Path, signatures: dict):
+    """Another fp_kernels.cu, built with this tree's flags."""
+    return finish_build(start_build(cu), signatures)
+
+
+# the replay entry points before their redesign: (bcodes, xors, out, C, L,
+# e1, e2, stream)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+PARENT_REPLAY = dict.fromkeys(("tt_replay", "tt_replay64"),
+                              [_P, _P, _P, _I, _I, _I, _I, _P])
 
 
 def main(argv=None) -> int:
@@ -157,7 +179,7 @@ def main(argv=None) -> int:
                   f"{time_ms(lambda: kern(bc[:c], res[:c], *EXP)):.4f} ms",
                   flush=True)
         if args.parent:
-            lib = load_parent(args.parent)
+            lib = load_parent(args.parent, PARENT_REPLAY)
             fn = getattr(lib, f"tt_{name}")
             out = torch.empty_like(res)
             stream = torch.cuda.current_stream().cuda_stream
