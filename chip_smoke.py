@@ -29,9 +29,20 @@ Phases, each fatal on failure:
    both layouts; the plain versions run over blocks of rows. Besides,
    predict and replay (both widths) at more exponents on words with NaN,
    inf, zero, subnormal and negative patterns, f32 predict also at (14,14),
-   whose 128 KB of tables take a block of one warp, and ``fcm_multi_xors``
-   at (2,6,8). ``predict_xors`` and ``predict64_xors`` besides at chunk
-   lengths 8, 40, 4096 and 4104, one chunk and 1031, exponents (0,0), (0,6),
+   whose 128 KB of tables take a block of one warp. ``fcm_multi_xors``
+   besides at K = 1, 3 and 8 exponents ((8,), (2,6,8) and
+   (2,3,4,6,8,10,12,14), whose 87 KB of tables take a block of one warp) at
+   chunk lengths 8, 40 and 4104, one chunk and 1031, also on views one word
+   into a larger tensor. ``pair_compact_or`` besides on merging compactions
+   (runs of 1-5 live carriers with one destination and dead slots between,
+   zero payloads, an all-dead row, carriers out of reach and past slot 0,
+   garbage in dead slots) at 37, 4096, 4100, 58113 and 120001 slots (a merge
+   run across every edge of its tiles of 2048 slots), 1031 rows, on views one
+   word into a larger tensor (both
+   arrays, and the carrier alone), and on the calls of a pack at chunk
+   lengths 8, 40 and 4104. ``predict_xors`` and ``predict64_xors`` besides
+   at chunk lengths 8, 40, 4096 and 4104, one chunk and 1031, exponents
+   (0,0), (0,6),
    (4,6), (4,10), (10,12) and (14,14) or (12,12) (tables past 48 KB), also
    on views one word into a larger tensor. ``logshift`` besides at 17925,
    37, 2049 and 4100 slots and 1031 rows, left and right, with an all-dead
@@ -154,16 +165,31 @@ REPLACES = {
 PLAIN = {name: getattr(fp_cuda, f"{name}_plain") for name in fp_cuda.KERNELS}
 # the redesigned kernels' times before their redesign (H100 80GB HBM3 at
 # 700 W): the replays as one thread per chunk, logshift as a memset and a
-# scatter of 4-byte stores, the predictors with one window's load in flight;
-# (2048, 4096) u32 and (4096, 4096) u64 words, (4,6), 16384 slots
+# scatter of 4-byte stores, pair_compact_or as a memset and an atomicOr per
+# payload in device memory, the predictors and fcm_multi_xors with one
+# window's load in flight; (2048, 4096) u32 and (4096, 4096) u64 words,
+# (4,6), e1s=(8,), 16384 slots
 BEFORE_REDESIGN_MS = {"replay": 0.4863, "replay64": 0.8086, "logshift": 0.1730,
-                      "predict_xors": 0.0901, "predict64_xors": 0.1641}
+                      "predict_xors": 0.0901, "predict64_xors": 0.1641,
+                      "pair_compact_or": 0.0655, "fcm_multi_xors": 0.0906}
 # the arguments a kernel shares with its plain version; what follows them
 # only steers the kernel (G and T)
 PLAIN_ARGS = {"replay": 4, "replay64": 4}
 PREDICT_LENS = (8, 40, CHUNK_LEN, CHUNK_LEN + 8)
 PREDICT_EXPS = ((0, 0), (0, 6), (4, 6), (4, 10), (10, 12))
 PACK_SLOTS = 5 + 35 * CHUNK_LEN // 8  # 17925: the reference layout's pack row
+# source slots of a pair_compact_or tile (4 * kShiftVec * kShiftThreads in
+# fp_kernels.cu)
+TILE_SLOTS = 2048
+# (rows, slots) of the merging compactions: a row shorter than a tile, the
+# main path's length, one vector past it, one slot past the longest row one
+# block could stage whole (232448 bytes), and a longer row
+PAIR_SHAPES = ((5, 37), (1, CHUNK_LEN), (1031, CHUNK_LEN + 4), (3, 58113),
+               (3, 120001))
+ODD_LENS = (8, 40, CHUNK_LEN + 8)  # chunk lengths off the kernels' grids
+# fcm_multi_xors at K = 1, 3 and 8 exponents; the last holds 87 KB of tables,
+# so a block of one warp that opts into more shared memory
+FCM_E1S = ((8,), FCM_EXTRA_E1S, (2, 3, 4, 6, 8, 10, 12, 14))
 CARD = "unknown card"  # name and power limit, set by main()
 # chunk lengths off the replay kernel's grids (tile, 4-value vector, warp)
 REPLAY_ODD_LENS = {"replay": (8, 40, CHUNK_LEN + 8),
@@ -349,6 +375,97 @@ def logshift_shape_cases():
     return cases
 
 
+def merging_compaction(C: int, S: int, seed: int):
+    """(carrier, payload, nbits) of a merging monotone left compaction of C
+    rows of S slots, as uint32 arrays: live slots (55%) in runs of 1-5 that
+    share a destination, dead slots between, destinations that never fall
+    and now and then skip 1-3 words, 10% zero payloads, payload garbage and
+    even (dead) carriers in dead slots, carriers out of the network's reach
+    (disp >> nbits != 0) and carriers past slot 0; the middle row of several
+    all dead; and a merge run across every tile edge whatever the row's
+    16-byte grid: live slots at k * TILE_SLOTS - 5 and + 4, one run from the
+    one to the other."""
+    r = np.random.default_rng(seed)
+    nbits = max(S - 1, 1).bit_length()
+    live = r.random((C, S)) < 0.55
+    edges = np.arange(TILE_SLOTS, S - 4, TILE_SLOTS)
+    live[:, edges - 5] = live[:, edges + 4] = True
+    near = np.zeros(S, bool)
+    for o in range(-4, 5):
+        near[edges + o] = True
+    if C > 2:
+        live[C // 2] = False
+    rows, cols = np.nonzero(live)
+    n = len(rows)
+    first = np.ones(n, bool)
+    first[1:] = rows[1:] != rows[:-1]
+    start = np.zeros(n, bool)  # a new destination every 1st..5th live slot
+    at = np.cumsum(r.integers(1, 6, n)) - 1
+    start[at[at < n]] = True
+    start = (start & ~near[cols]) | first
+    step = start * (1 + (r.random(n) < 0.1) * r.integers(1, 4, n))
+    csum = np.cumsum(step)
+    row_at = np.zeros(C, np.int64)  # per row: the sum at its first live slot
+    row_at[rows[first]] = csum[first]
+    origin = np.zeros(C, np.int64)  # per row: its first destination
+    origin[rows[first]] = r.integers(0, cols[first] + 1)
+    dest = np.minimum(origin[rows] + csum - row_at[rows], cols)
+    carrier = np.zeros((C, S), np.uint64)
+    one = np.uint64(1)
+    carrier[rows, cols] = ((cols - dest).astype(np.uint64) << one) | one
+    payload = r.integers(0, 1 << 32, (C, S), dtype=np.uint64)
+    payload[r.random((C, S)) < 0.1] = 0
+    dead = ~live
+    if C > 2:
+        dead[C // 2] = False  # the all-dead row stays all zero
+    junk = dead & (r.random((C, S)) < 0.05)
+    carrier[junk] = r.integers(1, 1 << 31, int(junk.sum())).astype(np.uint64) << one
+    lanes = np.broadcast_to(np.arange(S), (C, S))
+    far = dead & (r.random((C, S)) < 0.01)
+    disp = ((r.integers(1, 1 << (31 - nbits), int(far.sum())) << nbits)
+            | r.integers(0, 1 << nbits, int(far.sum())))
+    carrier[far] = (disp.astype(np.uint64) << one) | one
+    past = dead & ~far & (lanes < 64) & (r.random((C, S)) < 0.3)
+    s = lanes[past]
+    disp = s + 1 + r.integers(0, np.maximum((1 << nbits) - s - 1, 1))
+    carrier[past] = (disp.astype(np.uint64) << one) | one
+    return carrier.astype(np.uint32), payload.astype(np.uint32), nbits
+
+
+def pair_shape_cases(words: torch.Tensor):
+    """pair_compact_or cases: merging compactions at every shape of
+    PAIR_SHAPES, also as views one word into a larger tensor (both arrays,
+    and the carrier alone: the two rows then lie on different grids), and
+    the calls of a pack of (1031, L) ``words`` at each of ODD_LENS."""
+    cases = []
+    for n, (C, S) in enumerate(PAIR_SHAPES):
+        carrier, payload, nbits = merging_compaction(C, S, seed=n)
+        c = _u32.from_numpy(carrier).cuda()
+        p = _u32.from_numpy(payload).cuda()
+        cases += [((c, p, nbits), None),
+                  ((offset_view(c), offset_view(p), nbits), None),
+                  ((offset_view(c), p, nbits), None)]
+    for L in ODD_LENS:
+        w = words[:, :L].contiguous()
+        bc, res = fp_torch._bcode_res_from_xors(*fp_cuda.predict_xors_plain(w, *EXP))
+        seen = record_calls(lambda: fp_torch.pack_f32_chunks_v2(bc, res, *EXP))
+        cases += [(args, None) for args in seen["pair_compact_or"]]
+    return cases
+
+
+def fcm_shape_cases(words: torch.Tensor):
+    """fcm_multi_xors cases cut from (1031, 4104) ``words``: every set of
+    FCM_E1S at every length of ODD_LENS, one chunk and 1031, and views one
+    word into a larger tensor."""
+    cases = []
+    for L in ODD_LENS:
+        for C in (1, words.shape[0]):
+            w = words[:C, :L].contiguous()
+            cases += [((w, e1s), None) for e1s in FCM_E1S]
+        cases.append(((offset_view(words[:, :L].contiguous()), FCM_EXTRA_E1S), None))
+    return cases
+
+
 def record_calls(run):
     """Run ``run()`` with every kernel wrapper recording what it was given."""
     seen = {k: [] for k in fp_cuda.KERNELS}
@@ -463,13 +580,14 @@ def kernel_phase(x, x64, raw, raw64, tflat, lucy):
     special64 = _u64.from_numpy(special_words64(256, CHUNK_LEN)).cuda()
     mixed64 = torch.cat([x64[:256], special64])
     odd = (1031, CHUNK_LEN + 8)  # rows and lengths off every grid
+    odd32 = _u32.from_numpy(special_words(*odd, seed=5)).cuda()
     extra = {"predict_xors": [((special, *EXP), None), ((mixed, *BIG_EXP), None)]
              + [((mixed, *e), None) for e in EXTRA_EXPS]
-             + predict_shape_cases(
-                 _u32.from_numpy(special_words(*odd, seed=5)).cuda(), BIG_EXP),
-             "fcm_multi_xors": [((special, FCM_EXTRA_E1S), None)],
+             + predict_shape_cases(odd32, BIG_EXP),
+             "fcm_multi_xors": [((special, FCM_EXTRA_E1S), None)]
+             + fcm_shape_cases(odd32),
              "replay": [], "logshift": logshift_shape_cases(),
-             "pair_compact_or": [],
+             "pair_compact_or": pair_shape_cases(odd32),
              "predict64_xors": [((special64, *EXP), None)]
              + [((mixed64, *e), None) for e in EXTRA_EXPS64]
              + predict_shape_cases(

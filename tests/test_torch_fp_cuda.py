@@ -6,6 +6,9 @@ The CUDA kernels themselves run only on a card; ``chip_smoke.py`` holds each
 against these plain versions there.
 """
 
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -146,6 +149,124 @@ def test_pair_compact_or_matches_pallas(seed, which):
     want = fp_pallas.pair_compact_or_pallas(
         jnp.asarray(_np(carrier)), jnp.asarray(_np(payload)), nbits, True)
     np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def _merging_compaction(C, S, seed):
+    """(carrier, payload, nbits) of a merging monotone left compaction on
+    which the network of _pair_compact_kernel and a direct scatter agree.
+    Row 0 is all dead (payload garbage only). In the others, live slots come
+    in runs of 1-5 that share a destination, with dead slots (payload
+    garbage) between; each run's destination is one past the last one's, so
+    displacements never fall either; a tenth of the payloads are 0. Besides,
+    where no moving carrier passes: carriers past slot 0 in the slots before
+    the first destination, with a power of two above the slot as their
+    displacement (one pass takes them out of the row), and carriers out of
+    reach in the last three slots, after every live one, with displacements
+    of 1-3 x 2^nbits (no pass moves them). Anywhere else such carriers can
+    meet moving ones in the network, which then ORs their payloads in where
+    the direct scatter drops them."""
+    r = np.random.default_rng(seed)
+    nbits = max(S - 1, 1).bit_length()
+    carrier = np.zeros((C, S), np.uint64)
+    payload = r.integers(0, 1 << 32, (C, S), dtype=np.uint64)
+    for c in range(1, C):
+        first = int(r.integers(2, 9))  # the row's first destination
+        live = np.nonzero(r.random(S) < 0.55)[0]
+        dest, left = first - 1, 0
+        for s in live[(live >= first) & (live < S - 3)]:
+            if left == 0:  # a new run
+                dest, left = dest + 1, int(r.integers(1, 6))
+            left -= 1
+            carrier[c, s] = ((s - dest) << 1) | 1
+            if r.random() < 0.1:
+                payload[c, s] = 0
+        for s in range(first):
+            if r.random() < 0.5:
+                carrier[c, s] = ((1 << s.bit_length()) << 1) | 1
+        for s in range(S - 3, S):
+            if r.random() < 0.5:
+                carrier[c, s] = ((int(r.integers(1, 4)) << nbits) << 1) | 1
+    return carrier.astype(np.uint32), payload.astype(np.uint32), nbits
+
+
+def _kept_destinations(carrier, nbits):
+    """Per slot the destination of a carrier the direct scatter keeps, -1
+    for every other slot."""
+    c = carrier.astype(np.int64)
+    disp = c >> 1
+    lanes = np.arange(c.shape[1])[None, :]
+    ok = ((c & 1) == 1) & ((disp >> nbits) == 0) & (disp <= lanes)
+    return np.where(ok, lanes - disp, -1)
+
+
+@pytest.mark.parametrize("S", [24, 37, 64, 129, 257])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pair_compact_or_merging_runs_match_pallas(S, seed):
+    """The plain version against the network on merging compactions with an
+    all-dead row, dropped carriers and zero payloads."""
+    carrier, payload, nbits = _merging_compaction(4, S, seed)
+    dest = _kept_destinations(carrier, nbits)
+    live = carrier & 1 == 1
+    assert not live[0].any() and (live & (dest < 0)).any()
+    kept = dest[dest >= 0]
+    assert len(np.unique(kept)) < len(kept)  # some payloads merge
+    got = fp_cuda.pair_compact_or(_u32.from_numpy(carrier),
+                                  _u32.from_numpy(payload), nbits)
+    want = fp_pallas.pair_compact_or_pallas(
+        jnp.asarray(carrier), jnp.asarray(payload), nbits, True)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("C,S", [(5, 37), (1, 4096), (3, 2 * 2048 + 9)])
+def test_chip_smoke_merging_compactions(C, S):
+    """The merging compactions on which chip_smoke.py holds the
+    pair_compact_or kernels: destinations never fall over kept carriers, a
+    merge run crosses every tile edge at each of the four offsets a row can
+    have from the 16-byte grid, and the plain version equals a direct
+    scatter with OR."""
+    cs = _chip_smoke()
+    carrier, payload, nbits = cs.merging_compaction(C, S, seed=C + S)
+    dest = _kept_destinations(carrier, nbits)
+    want = np.zeros((C, S), np.uint32)
+    rows, cols = np.nonzero(dest >= 0)
+    np.bitwise_or.at(want, (rows, dest[rows, cols]), payload[rows, cols])
+    got = fp_cuda.pair_compact_or(_u32.from_numpy(carrier),
+                                  _u32.from_numpy(payload), nbits)
+    np.testing.assert_array_equal(_np(got), want)
+    for r in range(C):
+        d = dest[r][dest[r] >= 0]
+        assert np.all(np.diff(d) >= 0)
+        if C > 2 and r == C // 2:
+            assert not carrier[r].any()
+            continue
+        for edge in range(cs.TILE_SLOTS, S - 4, cs.TILE_SLOTS):
+            for o in range(4):
+                a, b = dest[r, : edge - o], dest[r, edge - o :]
+                assert a[a >= 0][-1] == b[b >= 0][0]
+
+
+@pytest.mark.parametrize("L", [1, 8, 33, 40])
+@pytest.mark.parametrize("e1s", [(8,), (2, 6, 8), (2, 3, 4, 5, 6, 8, 10, 12)],
+                         ids=["K1", "K3", "K8"])
+def test_fcm_multi_plain_matches_pallas_at_short_chunks(L, e1s):
+    """fcm_multi_xors (its plain version on the CPU) against
+    _fcm_multi_kernel in interpret mode at chunk lengths off the CUDA
+    kernel's 32-value windows (one value, one past a window), up to the 8
+    exponents one launch takes."""
+    x = words(6, L, seed=L + len(e1s))
+    got = fp_cuda.fcm_multi_xors(_u32.from_numpy(x), e1s)
+    want = fp_pallas.predict_fcm_xors_pallas(jnp.asarray(x), e1s, True)
+    assert len(got) == len(want) == len(e1s)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g), np.asarray(w))
 
 
 def test_wrappers_on_cpu_run_plain_versions_and_count_nothing():

@@ -45,6 +45,20 @@ def _planes(bits, n=700, k=3):
     return [np.ascontiguousarray(w[i]) for i in range(k)]
 
 
+def test_trico_tpu_library_is_asked_again_after_a_lost_build(monkeypatch):
+    """A worker that lost the race for trico_tpu's shared temporary file
+    holds that library unavailable; the port's tests ask once more and find
+    it built."""
+    import torch_cases
+
+    monkeypatch.setattr(jn, "_LIB", None)
+    monkeypatch.setattr(jn, "_LOAD_ERROR", "the temporary file was renamed")
+    monkeypatch.setattr(torch_cases, "_TPU_NATIVE_ASKED_AGAIN", [])
+    assert not jn.available()
+    assert torch_cases.tpu_native_available()
+    assert jn.get_lib() is not None
+
+
 def test_the_library_is_the_ports_own():
     ours, theirs = Path(tn.get_lib()._name), Path(jn.get_lib()._name)
     assert ours.name != theirs.name and ours.name.startswith("libtrico_torch_native_")

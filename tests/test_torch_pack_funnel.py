@@ -10,7 +10,10 @@ import torch
 from trico_tpu.codec import fp_pallas
 from trico_tpu.codec import pack_funnel as jpf
 from trico_tpu_torch import _u32
+from trico_tpu_torch.codec import fp_cuda
 from trico_tpu_torch.codec import pack_funnel as tpf
+
+from torch_cases import recording
 
 
 def _inputs(C, L, seed):
@@ -81,6 +84,25 @@ def test_pair_compact_or_matches_pallas(seed):
                                       _u32.from_numpy(payload), 9)
     want = fp_pallas.pair_compact_or_pallas(jnp.asarray(carrier),
                                             jnp.asarray(payload), 9, True)
+    np.testing.assert_array_equal(_u32.to_numpy(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("L", [4, 8, 40, 260, 4104])
+@pytest.mark.parametrize("which", [0, 1], ids=["c0", "c1"])
+def test_pair_compact_or_at_pack_lengths_matches_pallas(L, which):
+    """The two compactions of the word funnel at chunk lengths off the
+    kernels' grids (8, 40 and 4104 are those chip_smoke.py gives them on the
+    card): each call's (carrier, payload) through the plain version and the
+    Pallas kernel in interpret mode."""
+    length, res = _inputs(4, L, seed=L)
+    with recording(fp_cuda, "pair_compact_or") as calls:
+        tpf.region_words_f32(torch.from_numpy(length), _u32.from_numpy(res))
+    assert len(calls) == 2
+    carrier, payload, nbits = calls[which]
+    got = fp_cuda.pair_compact_or(carrier, payload, nbits)
+    want = fp_pallas.pair_compact_or_pallas(
+        jnp.asarray(_u32.to_numpy(carrier)), jnp.asarray(_u32.to_numpy(payload)),
+        nbits, True)
     np.testing.assert_array_equal(_u32.to_numpy(got), np.asarray(want))
 
 

@@ -97,11 +97,28 @@ def no_native(monkeypatch) -> None:
     monkeypatch.setattr(trico_tpu.native, "available", lambda: False)
 
 
+_TPU_NATIVE_ASKED_AGAIN = []
+
+
+def tpu_native_available() -> bool:
+    """``trico_tpu.native.available()``, asked a second time after a
+    failure. pytest-xdist workers that build trico_tpu's library at the same
+    time write one shared temporary file (trico_tpu/native/__init__.py:43-49),
+    so a worker can find it renamed by another, and then it holds the library
+    unavailable for the rest of its run although the library was built. The
+    second attempt, made once the workers have collected their tests, finds
+    the library built and loads it; without g++ it fails again."""
+    if not trico_tpu.native.available() and not _TPU_NATIVE_ASKED_AGAIN:
+        _TPU_NATIVE_ASKED_AGAIN.append(True)
+        trico_tpu.native._LOAD_ERROR = None
+    return trico_tpu.native.available()
+
+
 def require_native() -> None:
     """Skip the calling test unless the C++ host libraries are built: for the
     cases that have no NumPy fallback (the reference-layout pack and parse,
     the LZ4 emitter behind the device match search)."""
-    if not (trico_tpu_torch.native.available() and trico_tpu.native.available()):
+    if not (trico_tpu_torch.native.available() and tpu_native_available()):
         pytest.skip("needs the C++ host library (g++)")
 
 
@@ -110,5 +127,5 @@ def align_native(monkeypatch):
     """The two packages pick their host codec by whether their own C++
     library is built. Where only one of the two built, run both without, so
     that a parity test compares like with like."""
-    if trico_tpu.native.available() != trico_tpu_torch.native.available():
+    if tpu_native_available() != trico_tpu_torch.native.available():
         no_native(monkeypatch)

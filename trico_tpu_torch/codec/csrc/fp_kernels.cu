@@ -31,11 +31,14 @@ constexpr int kSmSmem = 233472;
 // Exponents one fcm_multi launch takes (fp_cuda.MAX_FCM).
 constexpr int kMaxFcm = 8;
 
-// The three choices below are fixed from measurements on the H100 and are no
+// The choices below are fixed from measurements on the H100 and are no
 // argument of any entry point. tools/kernel_compare.py builds copies of this
 // file with other values (-D...) to time them beside the library's.
 #ifndef TT_PREDICT_DEPTH
 #define TT_PREDICT_DEPTH 4
+#endif
+#ifndef TT_FCM_DEPTH
+#define TT_FCM_DEPTH 4
 #endif
 #ifndef TT_SHIFT_VEC
 #define TT_SHIFT_VEC 2
@@ -47,8 +50,11 @@ constexpr int kMaxFcm = 8;
 // resolves: 1 and 2 are slower, 8 gains 3% on u32 words and loses 1-2% on
 // u64 words.
 constexpr int kPredictDepth = TT_PREDICT_DEPTH;
-// 16-byte loads a thread of a logshift tile block makes: tiles of 1024 x
-// this many source slots. 1 is slower everywhere, 4 level with 2.
+// The same for the fcm_multi warp.
+constexpr int kFcmDepth = TT_FCM_DEPTH;
+// 16-byte loads a thread of a logshift or pair_compact tile block makes:
+// tiles of 1024 x this many source slots. For logshift 1 is slower
+// everywhere, 4 level with 2.
 constexpr int kShiftVec = TT_SHIFT_VEC;
 // Which logshift kernel a launch takes. 0: a block per row for a right
 // expansion whose row fits the stage, the tiles otherwise; 1: the tiles
@@ -70,32 +76,10 @@ __device__ __forceinline__ uint32_t dead_key(int lane) {
   return 0x80000000u | (uint32_t)lane;
 }
 
-// One warp's read of one hash table for a window of 32 positions, lane i
-// holding position base + i: the payload of the latest lower lane with the
-// same key, else the table as the window found it (0 for a dead lane).
-// `group` returns the lanes that share this lane's key.
-template <typename W>
-__device__ __forceinline__ W window_read(const W* t, uint32_t key, W payload,
-                                         int lane, bool active,
-                                         unsigned& group) {
-  group = __match_any_sync(kFull, key);
-  const unsigned below = group & ((1u << lane) - 1u);
-  const W w = __shfl_sync(kFull, payload, below ? 31 - __clz(below) : lane);
-  return below ? w : (active ? t[key] : W(0));
-}
-
-// The matching write, after every lane has read (a __syncwarp between): the
-// last lane of each key group stores its payload.
-template <typename W>
-__device__ __forceinline__ void window_write(W* t, uint32_t key, W payload,
-                                             int lane, bool active,
-                                             unsigned group) {
-  if (active && (group >> lane) == 1u) t[key] = payload;
-}
-
-// window_read without the table: whether a lower lane holds this lane's
-// key (`hit`), that lane's payload (`from_lane`), and whether this lane is
-// the last of its key (`last`, the one that writes the table).
+// One warp's window of 32 positions, lane i holding position base + i, and
+// one hash table: whether a lower lane holds this lane's key (`hit`), that
+// lane's payload (`from_lane`), and whether this lane is the last of its key
+// (`last`, the one that writes the table). No table is read.
 template <typename W>
 __device__ __forceinline__ void window_match(uint32_t key, W payload, int lane,
                                              bool& hit, bool& last,
@@ -148,6 +132,48 @@ __device__ __forceinline__ uint64_t ld_stream(const uint64_t* p) {
   return v;
 }
 
+// D windows of a row from `base` on, lane i of window u holding position
+// base + 32 u + i (0 past the row's end). The loads start here, in program
+// order.
+template <typename W, int D>
+__device__ __forceinline__ void fetch_windows(const W* row, int base, int L,
+                                              int lane, W (&w)[D]) {
+#pragma unroll
+  for (int u = 0; u < D; ++u) {
+    const int i = base + 32 * u + lane;
+    w[u] = i < L ? ld_stream(row + i) : W(0);
+  }
+}
+
+// The value before each position of D windows; `carry` holds the one before
+// the first window and becomes the last window's last value.
+template <typename W, int D>
+__device__ __forceinline__ void prev_values(const W (&v)[D], int lane,
+                                            W& carry, W (&vprev)[D]) {
+#pragma unroll
+  for (int u = 0; u < D; ++u) {
+    const W up1 = __shfl_up_sync(kFull, v[u], 1);
+    vprev[u] = lane ? up1 : carry;
+    carry = __shfl_sync(kFull, v[u], 31);
+  }
+}
+
+// The FCM keys of D windows from `base` on (the top e bits of the value
+// before each position; a lane past the row's end gets a key that matches
+// nothing) and their window_match, the values being the payloads.
+template <typename W, int D>
+__device__ __forceinline__ void fcm_windows(const W (&v)[D],
+                                            const W (&vprev)[D], int base,
+                                            int L, int lane, int e,
+                                            uint32_t (&key)[D], bool (&hit)[D],
+                                            bool (&last)[D], W (&from)[D]) {
+#pragma unroll
+  for (int u = 0; u < D; ++u) {
+    key[u] = base + 32 * u + lane < L ? top_bits(vprev[u], e) : dead_key(lane);
+    window_match(key[u], v[u], lane, hit[u], last[u], from[u]);
+  }
+}
+
 template <typename W, int D>
 __global__ void predict_kernel(const W* __restrict__ values,
                                W* __restrict__ xor1, W* __restrict__ xor2,
@@ -159,16 +185,8 @@ __global__ void predict_kernel(const W* __restrict__ values,
   const long long c = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (c >= C) return;  // warp-uniform
   const W* row = values + c * L;
-  // D windows from `base` on; the loads start here, in program order
-  auto fetch = [&](W (&w)[D], int base) {
-#pragma unroll
-    for (int u = 0; u < D; ++u) {
-      const int i = base + 32 * u + lane;
-      w[u] = i < L ? ld_stream(row + i) : W(0);
-    }
-  };
   W cur[D], nxt[D];
-  fetch(cur, 0);
+  fetch_windows(row, 0, L, lane, cur);
 
   W* t1 = reinterpret_cast<W*>(smem_raw) + (size_t)warp * (T1 + T2);
   W* t2 = t1 + T1;
@@ -183,27 +201,24 @@ __global__ void predict_kernel(const W* __restrict__ values,
   uint32_t tprev = 0u, tprev2 = 0u;  // carries, zero at i = 0
 
   for (int base = 0; base < L; base += 32 * D) {
-    fetch(nxt, base + 32 * D);
+    fetch_windows(row, base + 32 * D, L, lane, nxt);
     W s[D], vprev[D], from1[D], from2[D];
     uint32_t k1[D], k2[D];
     bool hit1[D], hit2[D], last1[D], last2[D];
+    // no table is read until the windows' turns below
+    prev_values(cur, lane, vprev_c, vprev);
+    fcm_windows(cur, vprev, base, L, lane, e1, k1, hit1, last1, from1);
 #pragma unroll
-    for (int u = 0; u < D; ++u) {  // no table is read here
+    for (int u = 0; u < D; ++u) {
       const bool active = base + 32 * u + lane < L;
-      const W v = cur[u];
-      const W up1 = __shfl_up_sync(kFull, v, 1);
-      vprev[u] = lane ? up1 : vprev_c;
-      s[u] = v - vprev[u];
+      s[u] = cur[u] - vprev[u];
       const uint32_t t = top_bits(s[u], e2);
       const uint32_t tu1 = __shfl_up_sync(kFull, t, 1);
       const uint32_t tu2 = __shfl_up_sync(kFull, t, 2);
       const uint32_t t_1 = lane >= 1 ? tu1 : tprev;
       const uint32_t t_2 = lane >= 2 ? tu2 : (lane == 1 ? tprev : tprev2);
-      k1[u] = active ? top_bits(vprev[u], e1) : dead_key(lane);
       k2[u] = active ? (e2 ? (t_1 ^ ((t_2 << sh2) & m2)) : 0u) : dead_key(lane);
-      window_match(k1[u], v, lane, hit1[u], last1[u], from1[u]);
       window_match(k2[u], s[u], lane, hit2[u], last2[u], from2[u]);
-      vprev_c = __shfl_sync(kFull, v, 31);
       tprev2 = __shfl_sync(kFull, t, 30);
       tprev = __shfl_sync(kFull, t, 31);
     }
@@ -232,55 +247,75 @@ __global__ void predict_kernel(const W* __restrict__ values,
 }
 
 // ---------------------------------------------------------------------------
-// fcm_multi_kernel (tt_fcm_multi_xors): replaces _fcm_multi_kernel
+// fcm_multi_kernel<D> (tt_fcm_multi_xors): replaces _fcm_multi_kernel
 // (fp_pallas.py:150).
 //
-// The FCM half of predict_kernel<uint32_t> for K exponents at once: one warp
-// per chunk reads each value once and resolves K tables (2^e1 words each)
-// per window with the same window_read / window_write. Output q is plane q of
-// a (K, C, L) array. Bound on the H100: as predict_kernel, shared-memory
-// latency and shuffles, K times over; the tables stay in shared memory.
+// The FCM half of predict_kernel<uint32_t, D> for K exponents at once: plane
+// q of a (K, C, L) output holds v ^ T_q[top_e_q(vprev)], T_q a table of 2^e_q
+// words. Bound on the H100: device-memory bytes, one word in and K out per
+// value (0.020 ms for (2048, 4096) at K = 1, 0.040 ms at K = 3). As in
+// predict_kernel a chunk is one warp, so what a warp does in turn for each
+// window sets the time unless its loads are in flight meanwhile; the kernel
+// before this one fetched one window at a time and resolved it straight
+// after its load (0.0906 ms at K = 1, 22% of the bound). The design is
+// predict_kernel's window pipeline, with the exponent loop inside it: the
+// next D windows of the row are fetched before the current D are resolved;
+// then, exponent by exponent, keys, key groups and lane payloads of all D
+// windows come from the fetched values alone (fcm_windows), followed by the
+// D table steps of table q and the coalesced stores into plane q. Only one
+// exponent's match state is live at a time, so K = 8 spills nothing, and the
+// fetched values serve all K tables. The exponents come packed five bits
+// each in one 64-bit argument: an array argument indexed by the loop
+// variable could be copied to local memory.
 // ---------------------------------------------------------------------------
-struct FcmExponents {
-  int k;
-  int e[kMaxFcm];
-};
-
+template <int D>
 __global__ void fcm_multi_kernel(const uint32_t* __restrict__ values,
                                  uint32_t* __restrict__ out, int C, int L,
-                                 FcmExponents ex, int words_per_warp) {
+                                 int K, unsigned long long exps,
+                                 int words_per_warp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long c = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (c >= C) return;  // warp-uniform
+  const uint32_t* row = values + c * L;
+  uint32_t cur[D], nxt[D];
+  fetch_windows(row, 0, L, lane, cur);
+
   uint32_t* tables =
       reinterpret_cast<uint32_t*>(smem_raw) + (size_t)warp * words_per_warp;
   for (int k = lane; k < words_per_warp; k += 32) tables[k] = 0u;
   __syncwarp();
 
-  const uint32_t* row = values + c * L;
   const long long plane = (long long)C * L;
   uint32_t vprev_c = 0u;
-  for (int base = 0; base < L; base += 32) {
-    const int i = base + lane;
-    const bool active = i < L;
-    const uint32_t v = active ? row[i] : 0u;
-    const uint32_t up1 = __shfl_up_sync(kFull, v, 1);
-    const uint32_t vprev = lane ? up1 : vprev_c;
+  for (int base = 0; base < L; base += 32 * D) {
+    fetch_windows(row, base + 32 * D, L, lane, nxt);
+    uint32_t vprev[D];
+    prev_values(cur, lane, vprev_c, vprev);
     uint32_t* t = tables;
-    for (int q = 0; q < ex.k; ++q) {
-      const int e = ex.e[q];
-      const uint32_t key = active ? top_bits(vprev, e) : dead_key(lane);
-      unsigned g;
-      const uint32_t pred = window_read(t, key, v, lane, active, g);
-      if (active) out[q * plane + c * L + i] = v ^ pred;
-      __syncwarp();  // every lane read table q as of the window's start
-      window_write(t, key, v, lane, active, g);
+    uint32_t* o = out + c * L;
+    for (int q = 0; q < K; ++q) {
+      const int e = (int)(exps >> (5 * q)) & 31;
+      uint32_t key[D], from[D];
+      bool hit[D], last[D];
+      fcm_windows(cur, vprev, base, L, lane, e, key, hit, last, from);
+#pragma unroll
+      for (int u = 0; u < D; ++u) {
+        const int i = base + 32 * u + lane;
+        if (i - lane >= L) break;  // warp-uniform
+        const bool active = i < L;
+        const uint32_t pred = hit[u] ? from[u] : (active ? t[key[u]] : 0u);
+        if (active) o[i] = cur[u] ^ pred;
+        __syncwarp();  // every lane read table q as of the window's start
+        if (active && last[u]) t[key[u]] = cur[u];
+        __syncwarp();
+      }
       t += 1 << e;
+      o += plane;
     }
-    __syncwarp();
-    vprev_c = __shfl_sync(kFull, v, 31);
+#pragma unroll
+    for (int u = 0; u < D; ++u) cur[u] = nxt[u];
   }
 }
 
@@ -794,33 +829,165 @@ logshift_row_kernel(const uint32_t* __restrict__ word,
 }
 
 // ---------------------------------------------------------------------------
-// pair_compact_or: replaces _pair_compact_kernel (fp_pallas.py:323).
+// pair_compact (tt_pair_compact_or): replaces _pair_compact_kernel
+// (fp_pallas.py:323).
 //
-// A live carrier is disp << 1 | 1; its payload ends at lane s - disp, and
-// payloads that meet are ORed. OR is order-free, so one thread per lane
-// doing atomicOr into an output zeroed first gives the network's result
-// deterministically. Bound on the H100: device-memory bytes (two reads, one
-// memset, one atomic per live nonzero payload); atomics to one word come
-// only from the few lanes of one merge, so they do not serialise.
+// A live carrier is disp << 1 | 1 (bit 0 clear: dead); its payload goes to
+// slot s - disp of its row, and payloads that meet are ORed. A carrier with
+// disp >> nbits != 0 is out of the network's reach, one with disp > s would
+// pass slot 0: both are dropped. Every other output word is 0. The caller's
+// destinations never fall as the slot rises over live carriers, and a run
+// of equal ones can hold several live carriers with dead ones between.
+//
+// Bound on the H100: device-memory bytes, 12 a slot (carrier and payload
+// read, the word written): 0.030 ms at (2048, 4096). The kernel before this
+// one zeroed the output with a memset, then ORed each payload into device
+// memory with an atomic (a read-modify-write in L2): each output word written
+// twice (0.0655 ms, 46% of the bound). Here every output word is written
+// once, by the kernel, in full sectors, and nothing per slot costs more than
+// a few instructions (the row comes from the block index). The design
+// (pair_tile_kernel) is logshift_tile_kernel's, with ORs into the stage: a
+// block takes a tile of 2048 source slots on the carrier row's 16-byte grid
+// (the payload word by word where its row lies on another grid) and owns the
+// output from one past the last destination before it, found by a
+// look-back, to its own last destination; it zeroes its stage, ORs the
+// payloads in with shared-memory atomics and writes the range once. One
+// thing is new: a run of equal destinations can cross a tile's end. The tile
+// that owns that word reads on past its end while live carriers land on it,
+// until one lands further on or the row ends, and ORs their payloads in; to
+// the tile the run crosses into, the word lies below its range, so it leaves
+// it alone. A block per row with the whole row staged (rows up to 58112
+// slots) took the same time at (2048, 4096) on an H100 80GB HBM3 at 700 W
+// (0.0375 against 0.0376 ms), and the tiles take rows of any length, so
+// they are the only kernel.
 // ---------------------------------------------------------------------------
-__global__ void pair_compact_kernel(const uint32_t* __restrict__ carrier,
-                                    const uint32_t* __restrict__ payload,
-                                    uint32_t* __restrict__ out, long long n,
-                                    int S, int nbits) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const uint32_t c = carrier[idx];
-  if (!(c & 1u)) return;
+
+// Destination + 1 of the carrier c at slot s of its row; 0 for a dead
+// carrier and for one that is dropped.
+__device__ __forceinline__ uint32_t pair_dest1(uint32_t c, int s, int nbits) {
+  if (!(c & 1u)) return 0u;
   const uint32_t disp = c >> 1;
-  if ((unsigned long long)disp >> nbits) return;  // out of the network's reach
-  const long long s = idx % S;
-  if ((long long)disp > s) return;  // moved past lane 0: dropped
-  const uint32_t p = payload[idx];
-  if (p) atomicOr(out + (idx - s) + (s - disp), p);
+  if ((unsigned long long)disp >> nbits) return 0u;  // out of reach
+  return disp <= (uint32_t)s ? (uint32_t)s - disp + 1u : 0u;
 }
 
-int grid_1d(long long n, int threads) {
-  return (int)((n + threads - 1) / threads);
+// load4 of a row that may lie on another 16-byte grid than j (vec false):
+// then word by word.
+__device__ __forceinline__ void load4_as(const uint32_t* row, int j, int S,
+                                         bool vec, uint32_t (&q)[4]) {
+  if (vec) {
+    load4(row, j, S, q);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    q[k] = (j + k >= 0 && j + k < S) ? row[j + k] : 0u;
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kShiftThreads)
+pair_tile_kernel(const uint32_t* __restrict__ carrier,
+                 const uint32_t* __restrict__ payload,
+                 uint32_t* __restrict__ out, int S, int nbits, int tiles) {
+  constexpr int T = 4 * VEC * kShiftThreads;  // source slots of a tile
+  constexpr int W = 2 * T;                    // words of the stage
+  __shared__ __align__(16) uint32_t stage[W];
+  __shared__ uint32_t red[kShiftThreads / 32][2];
+  __shared__ uint32_t ahead;  // payloads past the tile that land on its last
+  const int x = threadIdx.x;
+  const long long row = blockIdx.x / (unsigned)tiles;
+  const int tile = (int)(blockIdx.x - row * tiles);
+  const uint32_t* cr = carrier + row * S;
+  const uint32_t* pr = payload + row * S;
+  uint32_t* dst = out + row * S;
+  const bool vec = off_grid(pr) == off_grid(cr);
+  const int t0 = tile * T - off_grid(cr);  // the tile's first slot
+
+  // the tile, the 256 slots before it, and meanwhile a zeroed stage
+  uint32_t c[VEC][4], p[VEC][4], d[VEC][4];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+    const int j = t0 + 4 * (v * kShiftThreads + x);
+    load4(cr, j, S, c[v]);
+    load4_as(pr, j, S, vec, p[v]);
+  }
+  int end = t0 - kShiftThreads;  // the look-back has come down to here
+  const uint32_t before = (end + x >= 0 && end + x < S) ? cr[end + x] : 0u;
+  for (int i = x; 4 * i < W; i += kShiftThreads)
+    reinterpret_cast<uint4*>(stage)[i] = make_uint4(0u, 0u, 0u, 0u);
+  if (x == 0) ahead = 0u;
+  uint32_t mine = 0u;
+#pragma unroll
+  for (int v = 0; v < VEC; ++v)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int s = t0 + 4 * (v * kShiftThreads + x) + k;
+      d[v][k] = pair_dest1(c[v][k], s, nbits);
+      mine = max(mine, d[v][k]);
+    }
+  uint32_t seen = pair_dest1(before, end + x, nbits);
+  block_max2(mine, seen, red);
+  const bool last_tile = tile == tiles - 1;
+  const int hi = last_tile ? S : (int)mine;
+  if (hi == 0) return;  // no live carrier: the range is empty
+  while (seen == 0u && end > 0) {  // block-uniform
+    end -= 4 * kShiftThreads;
+    uint32_t q[4], none = 0u;
+    load4(cr, end + 4 * x, S, q);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      seen = max(seen, pair_dest1(q[k], end + 4 * x + k, nbits));
+    block_max2(seen, none, red);
+  }
+  const int lo = (int)seen;
+
+  if (!last_tile && hi > lo) {  // the tile owns word hi - 1: look ahead
+    uint32_t acc = 0u;
+    for (int j = t0 + T; j < S; j += 4 * kShiftThreads) {  // block-uniform
+      uint32_t q[4], further = 0u, none = 0u;
+      load4(cr, j + 4 * x, S, q);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t e = pair_dest1(q[k], j + 4 * x + k, nbits);
+        if (e == (uint32_t)hi) acc |= pr[j + 4 * x + k];
+        further = max(further, (uint32_t)(e > (uint32_t)hi));
+      }
+      block_max2(further, none, red);
+      if (further) break;
+    }
+    acc = __reduce_or_sync(kFull, acc);
+    if ((x & 31) == 0 && acc) atomicOr(&ahead, acc);
+    __syncthreads();
+  }
+
+  const int mo = off_grid(dst);
+  bool zeroed = true;
+  for (int w0 = ((lo + mo) & ~3) - mo; w0 < hi; w0 += W) {
+    const int wn = hi - w0 < W ? hi - w0 : W;  // words of this round
+    if (!zeroed) {
+      __syncthreads();  // the round before has left the stage
+      for (int i = x; 4 * i < wn; i += kShiftThreads)
+        reinterpret_cast<uint4*>(stage)[i] = make_uint4(0u, 0u, 0u, 0u);
+      __syncthreads();
+    }
+    zeroed = false;
+#pragma unroll
+    for (int v = 0; v < VEC; ++v)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int at = (int)d[v][k] - 1 - w0;
+        if (d[v][k] && p[v][k] && at >= 0 && at < wn)
+          atomicOr(stage + at, p[v][k]);
+      }
+    if (x == 0 && ahead && hi - 1 - w0 < wn)
+      atomicOr(stage + (hi - 1 - w0), ahead);
+    __syncthreads();
+    for (int i = x; 4 * i < wn; i += kShiftThreads) {
+      const uint4 v = reinterpret_cast<const uint4*>(stage)[i];
+      const uint32_t o[4] = {v.x, v.y, v.z, v.w};
+      store4(dst, w0 + 4 * i, lo, hi, o);
+    }
+  }
 }
 
 int sm_count() {
@@ -863,12 +1030,18 @@ int launch_predict(const void* values, void* xor1, void* xor2, int C, int L,
   return (int)cudaGetLastError();
 }
 
+// Tiles of T source slots that each row of S words takes, the first row at
+// `first`: rows off the 16-byte grid start up to 3 slots into their first
+// tile (every row lies on the grid when the first does and S % 4 == 0).
+int tiles_per_row(const void* first, int S, int T) {
+  const bool on_grid = ((unsigned long long)first & 15ull) == 0 && S % 4 == 0;
+  return (int)(((long long)S + (on_grid ? 0 : 3) + T - 1) / T);
+}
+
 int launch_logshift_tiles(const void* word, void* out, long long C, int S,
-                          int pb, int nbits, int right, bool on_grid,
-                          void* stream) {
+                          int pb, int nbits, int right, void* stream) {
   constexpr int T = 4 * kShiftVec * kShiftThreads;
-  // rows off the 16-byte grid start up to 3 slots into their first tile
-  const int tiles = (int)(((long long)S + (on_grid ? 0 : 3) + T - 1) / T);
+  const int tiles = tiles_per_row(word, S, T);
   if (C * tiles > 0x7fffffffll) return (int)cudaErrorInvalidValue;
   logshift_tile_kernel<kShiftVec>
       <<<(unsigned)(C * tiles), kShiftThreads, 0, (cudaStream_t)stream>>>(
@@ -890,6 +1063,18 @@ int launch_logshift_rows(const void* word, void* out, long long C, int S,
   logshift_row_kernel<P>
       <<<(unsigned)C, kRowThreads, smem, (cudaStream_t)stream>>>(
           (const uint32_t*)word, (uint32_t*)out, S, pb, nbits, right);
+  return (int)cudaGetLastError();
+}
+
+int launch_pair_tiles(const void* carrier, const void* payload, void* out,
+                      long long C, int S, int nbits, void* stream) {
+  constexpr int T = 4 * kShiftVec * kShiftThreads;
+  const int tiles = tiles_per_row(carrier, S, T);
+  if (C * tiles > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  pair_tile_kernel<kShiftVec>
+      <<<(unsigned)(C * tiles), kShiftThreads, 0, (cudaStream_t)stream>>>(
+          (const uint32_t*)carrier, (const uint32_t*)payload, (uint32_t*)out,
+          S, nbits, tiles);
   return (int)cudaGetLastError();
 }
 
@@ -958,23 +1143,22 @@ int tt_predict64_xors(const void* values, void* xor1, void* xor2, int C,
 int tt_fcm_multi_xors(const void* values, void* out, int C, int L, int K,
                       const int* e1s, void* stream) {
   if (K < 1 || K > kMaxFcm) return (int)cudaErrorInvalidValue;
-  FcmExponents ex;
-  ex.k = K;
+  unsigned long long exps = 0;  // five bits an exponent
   long long words = 0;
-  for (int q = 0; q < kMaxFcm; ++q) {
-    ex.e[q] = q < K ? e1s[q] : 0;
-    if (q < K) {
-      if (e1s[q] < 2 || e1s[q] > 30) return (int)cudaErrorInvalidValue;
-      words += 1ll << e1s[q];
-    }
+  for (int q = 0; q < K; ++q) {
+    if (e1s[q] < 2 || e1s[q] > 30) return (int)cudaErrorInvalidValue;
+    exps |= (unsigned long long)e1s[q] << (5 * q);
+    words += 1ll << e1s[q];
   }
   int warps;
   long long smem;
-  const int rc = warps_per_block(fcm_multi_kernel, words * 4, &warps, &smem);
+  const int rc = warps_per_block(fcm_multi_kernel<kFcmDepth>, words * 4,
+                                 &warps, &smem);
   if (rc) return rc;
   const int blocks = (C + warps - 1) / warps;
-  fcm_multi_kernel<<<blocks, 32 * warps, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)values, (uint32_t*)out, C, L, ex, (int)words);
+  fcm_multi_kernel<kFcmDepth>
+      <<<blocks, 32 * warps, smem, (cudaStream_t)stream>>>(
+          (const uint32_t*)values, (uint32_t*)out, C, L, K, exps, (int)words);
   return (int)cudaGetLastError();
 }
 
@@ -1010,22 +1194,15 @@ int tt_logshift(const void* word, void* out, long long C, int S, int pb,
   if (rows && narrow)
     return launch_logshift_rows<uint16_t>(word, out, C, S, pb, nbits, right,
                                           stream);
-  // every row starts on the 16-byte grid when the first does and S % 4 == 0
-  const bool on_grid = ((unsigned long long)word & 15ull) == 0 && S % 4 == 0;
-  return launch_logshift_tiles(word, out, C, S, pb, nbits, right, on_grid,
-                               stream);
+  return launch_logshift_tiles(word, out, C, S, pb, nbits, right, stream);
 }
 
-// carrier, payload, out: (C, S) u32.
+// carrier, payload, out: (C, S) u32; S <= 2^30.
 int tt_pair_compact_or(const void* carrier, const void* payload, void* out,
                        long long C, int S, int nbits, void* stream) {
-  const long long n = C * S;
-  cudaError_t e = cudaMemsetAsync(out, 0, n * 4, (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  pair_compact_kernel<<<grid_1d(n, 256), 256, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)carrier, (const uint32_t*)payload, (uint32_t*)out, n, S,
-      nbits);
-  return (int)cudaGetLastError();
+  if (S < 1 || S > kMaxSlots || nbits < 0) return (int)cudaErrorInvalidValue;
+  nbits = nbits < 32 ? nbits : 32;  // a displacement has 31 bits
+  return launch_pair_tiles(carrier, payload, out, C, S, nbits, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
-"""Measure the ``logshift`` and ``predict_xors`` / ``predict64_xors`` kernels
-on one NVIDIA GPU, beside an earlier commit's.
+"""Measure the ``logshift``, ``predict_xors`` / ``predict64_xors``,
+``pair_compact_or`` and ``fcm_multi_xors`` kernels on one NVIDIA GPU, beside
+an earlier commit's.
 
     python3 -m trico_tpu_torch.tools.kernel_compare [--parent OLD/fp_kernels.cu]
                                                     [--skip-bp]
@@ -13,23 +14,28 @@ Builds the kernels and takes their inputs from the main paths, at full size:
   BP64 round trip of the 88,080,384-index triangle stream ((5376, 65536) and
   (10752, 65536); ``--skip-bp`` leaves these out);
 * ``predict_xors`` at (2048, 4096) u32 words and ``predict64_xors`` at
-  (4096, 4096) u64 words, exponents (4,6).
+  (4096, 4096) u64 words, exponents (4,6);
+* ``pair_compact_or``: the two calls of one f32 pack of the 8M-value stream
+  ((2048, 4096), (4,6));
+* ``fcm_multi_xors`` on the same stream at (2048, 4096), e1s = (8,) and
+  (2, 6, 8).
 
 Each kernel is held against its plain version (in blocks of rows), then
 timed with CUDA events, with the share of the bytes bound (each input read
 once, each output written once, at 3.35 TB/s) and, for the predictors, the
 cycles one warp spends on a window of 32 values. The library fixes the
 tile of ``logshift`` (2048 source slots), its choice between tiles and a
-block per row, and the predictors' fetch depth (4 windows); to show what
-the other values cost, the tool builds copies of ``fp_kernels.cu`` with
-``-DTT_SHIFT_VEC``, ``-DTT_SHIFT_KERNEL`` and ``-DTT_PREDICT_DEPTH`` set
+block per row, and the fetch depths of the predictors and of
+``fcm_multi_xors`` (4 windows); to show what the other values cost, the
+tool builds copies of ``fp_kernels.cu`` with ``-DTT_SHIFT_VEC``,
+``-DTT_SHIFT_KERNEL``, ``-DTT_PREDICT_DEPTH`` and ``-DTT_FCM_DEPTH`` set
 otherwise (all at once, one nvcc each), holds each against the plain
 version too and times it beside the library's, each through its entry
 point with the outputs allocated once (the wrapper's time, which the first
 line of a kernel gives, includes its host work). With ``--parent`` the same
 calls go to another ``fp_kernels.cu`` (built here with the same flags, the
-same entry points), its output must be the same, and the times are taken
-in turns: parent, this, this, parent.
+same entry points), its output must be the same, and the two entry points
+are timed in turns: parent, this, this, parent.
 
 Every line names the card and its power limit. Needs a CUDA card.
 """
@@ -37,6 +43,7 @@ Every line names the card and its power limit. Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import sys
 from pathlib import Path
 
@@ -50,7 +57,8 @@ from .replay_sweep import (EXP, HBM_BYTES_PER_S, L, _smi, finish_build,
 
 # the entry points called in another build: those of this tree's library
 ENTRIES = {name: _build._SIGNATURES["fp_kernels"][name]
-           for name in ("tt_logshift", "tt_predict_xors", "tt_predict64_xors")}
+           for name in ("tt_logshift", "tt_predict_xors", "tt_predict64_xors",
+                        "tt_pair_compact_or", "tt_fcm_multi_xors")}
 PLAIN_BLOCK = 1 << 26  # words a plain logshift call takes at once
 # the library itself, called as the other builds are: its entry point with
 # outputs allocated once, without the wrapper's host time
@@ -61,6 +69,8 @@ SHIFT_VARIANTS = {"tiles of 1024": ["-DTT_SHIFT_VEC=1", "-DTT_SHIFT_KERNEL=1"],
                   "tiles of 4096": ["-DTT_SHIFT_VEC=4", "-DTT_SHIFT_KERNEL=1"],
                   "block per row": ["-DTT_SHIFT_KERNEL=-1"]}
 PREDICT_VARIANTS = {f"depth {d}": [f"-DTT_PREDICT_DEPTH={d}"] for d in (1, 2, 8)}
+FCM_VARIANTS = {f"depth {d}": [f"-DTT_FCM_DEPTH={d}"] for d in (1, 2, 8)}
+FCM_E1S = ((8,), (2, 6, 8))
 
 
 def fullmesh_indices() -> np.ndarray:
@@ -69,19 +79,20 @@ def fullmesh_indices() -> np.ndarray:
     return i // 3 + (i % 3) * 7 + i % 1024
 
 
-def logshift_calls(run) -> list:
-    """The (word, pb, direction) of every ``logshift`` call ``run()`` makes."""
-    seen, real = [], fp_cuda.logshift
+def calls_of(name, run) -> list:
+    """The arguments of every call to ``fp_cuda.<name>`` that ``run()``
+    makes."""
+    seen, real = [], getattr(fp_cuda, name)
 
-    def record(word, pb, direction):
-        seen.append((word.clone(), pb, direction))
-        return real(word, pb, direction)
+    def record(*args):
+        seen.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return real(*args)
 
-    fp_cuda.logshift = record
+    setattr(fp_cuda, name, record)
     try:
         run()
     finally:
-        fp_cuda.logshift = real
+        setattr(fp_cuda, name, real)
     return seen
 
 
@@ -124,9 +135,40 @@ def raw_predict(lib, name, words):
     return call, (x1, x2)
 
 
-def others(what, this, want, builds, parent, card) -> bool:
-    """Hold every other build's (call, outputs) against ``want``, print its
-    time, and time the parent's in turns with ``this``."""
+def raw_pair(lib, carrier, payload, nbits):
+    """``tt_pair_compact_or`` of another build: (call, its output)."""
+    out = torch.empty_like(carrier)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        rc = lib.tt_pair_compact_or(carrier.data_ptr(), payload.data_ptr(),
+                                    out.data_ptr(), *carrier.shape, nbits,
+                                    stream)
+        assert rc == 0, rc
+
+    return call, (out,)
+
+
+def raw_fcm(lib, words, e1s):
+    """``tt_fcm_multi_xors`` of another build: (call, its output planes)."""
+    out = torch.empty((len(e1s), *words.shape), dtype=words.dtype,
+                      device=words.device)
+    exps = (ctypes.c_int * len(e1s))(*e1s)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        rc = lib.tt_fcm_multi_xors(words.data_ptr(), out.data_ptr(),
+                                   *words.shape, len(e1s), exps, stream)
+        assert rc == 0, rc
+
+    return call, tuple(out.unbind(0))
+
+
+def others(what, want, builds, parent, card) -> bool:
+    """Hold every build's (call, outputs) against ``want``, print its time,
+    and time the parent's in turns with the library's: both entry points
+    called directly, so that the wrapper's host work, which can outlast a
+    short kernel, is in neither."""
     row = []
     for label, (call, outs) in builds.items():
         call()
@@ -146,7 +188,7 @@ def others(what, this, want, builds, parent, card) -> bool:
             print(f"{what}: the parent differs", file=sys.stderr)
             return False
         print(f"  {what} parent / this / this / parent: "
-              + turns(call, this) + f" ms [{card}]", flush=True)
+              + turns(call, builds[LIBRARY][0]) + f" ms [{card}]", flush=True)
     return True
 
 
@@ -165,7 +207,7 @@ def compare_logshift(what, word, pb, direction, variants, parent, card) -> bool:
     print(f"logshift {what} ({C}, {S}) pb={pb} {direction}, "
           f"{100 * live / word.numel():.1f}% live: exact; {time_ms(this):.4f} ms; "
           f"bytes bound {bound:.4f} ms [{card}]", flush=True)
-    return others(f"logshift {what}", this, (want,),
+    return others(f"logshift {what}", (want,),
                   {k: raw_logshift(v, word, pb, direction)
                    for k, v in {LIBRARY: _build.lib(), **variants}.items()},
                   raw_logshift(parent, word, pb, direction) if parent else None, card)
@@ -194,10 +236,56 @@ def compare_predict(name, words, variants, parent, card) -> bool:
     for c in (1, 64, 256):
         print(f"  {name} at ({c}, {L}): {time_ms(lambda: kern(words[:c], *EXP)):.4f} ms",
               flush=True)
-    return others(name, this, want,
+    return others(name, want,
                   {k: raw_predict(v, name, words)
                    for k, v in {LIBRARY: _build.lib(), **variants}.items()},
                   raw_predict(parent, name, words) if parent else None, card)
+
+
+def compare_pair(what, carrier, payload, nbits, parent, card) -> bool:
+    want = fp_cuda.pair_compact_or_plain(carrier, payload, nbits)
+    bound = 12 * carrier.numel() / HBM_BYTES_PER_S * 1e3
+    live = int(((carrier & 1) == 1).sum().item())
+
+    def this():
+        return fp_cuda.pair_compact_or(carrier, payload, nbits)
+
+    if not torch.equal(this(), want):
+        print(f"pair_compact_or {what}: differs from the plain version",
+              file=sys.stderr)
+        return False
+    own = time_ms(this)
+    print(f"pair_compact_or {what} {tuple(carrier.shape)}, "
+          f"{100 * live / carrier.numel():.1f}% live: exact; {own:.4f} ms; "
+          f"bytes bound {bound:.4f} ms, {100 * bound / own:.1f}% of it reached "
+          f"[{card}]", flush=True)
+    return others(f"pair_compact_or {what}", (want,),
+                  {LIBRARY: raw_pair(_build.lib(), carrier, payload, nbits)},
+                  raw_pair(parent, carrier, payload, nbits) if parent else None,
+                  card)
+
+
+def compare_fcm(words, e1s, variants, parent, card) -> bool:
+    C = words.shape[0]
+    want = [torch.cat(p) for p in zip(*(fp_cuda.fcm_multi_xors_plain(
+        words[i : i + 512], e1s) for i in range(0, C, 512)))]
+    bound = (1 + len(e1s)) * words.numel() * 4 / HBM_BYTES_PER_S * 1e3
+
+    def this():
+        return fp_cuda.fcm_multi_xors(words, e1s)
+
+    if not all(torch.equal(g, w) for g, w in zip(this(), want)):
+        print(f"fcm_multi_xors {e1s}: differs from the plain version",
+              file=sys.stderr)
+        return False
+    own = time_ms(this)
+    print(f"fcm_multi_xors at ({C}, {L}), e1s={e1s}: exact; {own:.4f} ms; "
+          f"bytes bound {bound:.4f} ms, {100 * bound / own:.1f}% of it reached "
+          f"[{card}]", flush=True)
+    return others(f"fcm_multi_xors {e1s}", want,
+                  {k: raw_fcm(v, words, e1s)
+                   for k, v in {LIBRARY: _build.lib(), **variants}.items()},
+                  raw_fcm(parent, words, e1s) if parent else None, card)
 
 
 def main(argv=None) -> int:
@@ -213,30 +301,41 @@ def main(argv=None) -> int:
     card = _smi("name,power.limit")
     print(f"gpu: {card}", flush=True)
     report = _build.build_all()
-    show = 0  # the two kernels' entries in the -Xptxas -v report
+    show = 0  # the four kernels' entries in the -Xptxas -v report
     for line in report["fp_kernels"]["log"].splitlines():
-        show = 3 if "logshift" in line or "predict_kernel" in line else show - 1
+        show = 3 if any(k in line for k in ("logshift", "predict_kernel",
+                                            "pair_", "fcm_multi")) else show - 1
         if show > 0:
             print(f"  ptxas: {line.strip()}")
     source = _build.SOURCES["fp_kernels"]
     started = {k: start_build(source, d)
-               for k, d in {**SHIFT_VARIANTS, **PREDICT_VARIANTS}.items()}
+               for k, d in {**SHIFT_VARIANTS, **PREDICT_VARIANTS,
+                            **FCM_VARIANTS}.items()}
     built = {k: finish_build(b, ENTRIES) for k, b in started.items()}
     shifts = {k: built[k] for k in SHIFT_VARIANTS}
     depths = {k: built[k] for k in PREDICT_VARIANTS}
+    fcm_depths = {k: built[k] for k in FCM_VARIANTS}
     lib = load_parent(args.parent, ENTRIES) if args.parent else None
 
     x32, x64 = streams()
     ok = compare_predict("predict_xors", x32, depths, lib, card)
     ok = compare_predict("predict64_xors", x64, depths, lib, card) and ok
     del x64
+    for e1s in FCM_E1S:
+        ok = compare_fcm(x32, e1s, fcm_depths, lib, card) and ok
+    pair_calls = calls_of("pair_compact_or",
+                          lambda: fp_torch.encode_f32_chunks_v2(x32, *EXP))
+    for i, (carrier, payload, nbits) in enumerate(pair_calls):
+        ok = compare_pair(f"f32 pack call {i + 1}", carrier, payload, nbits,
+                          lib, card) and ok
+    del pair_calls
 
     payloads, _ = fp_torch.encode_f32_chunks_v2(x32, *EXP)
     bcode, res = fp_torch.predict_f32_chunks(x32, *EXP)
-    cases = [(f"f32 parse {i + 1}", *c) for i, c in enumerate(logshift_calls(
-        lambda: fp_torch.parse_f32_chunks_v2(payloads, L, *EXP)))]
-    cases += [("reference-layout pack", *c) for c in logshift_calls(
-        lambda: fp_torch.pack_f32_chunks(bcode, res, *EXP))]
+    cases = [(f"f32 parse {i + 1}", *c) for i, c in enumerate(calls_of(
+        "logshift", lambda: fp_torch.parse_f32_chunks_v2(payloads, L, *EXP)))]
+    cases += [("reference-layout pack", *c) for c in calls_of(
+        "logshift", lambda: fp_torch.pack_f32_chunks(bcode, res, *EXP))]
     for what, word, pb, direction in cases:
         ok = compare_logshift(what, word, pb, direction, shifts, lib, card) and ok
     del cases, payloads, bcode, res, x32
@@ -253,7 +352,7 @@ def main(argv=None) -> int:
                 p, _ = enc(words)
                 assert torch.equal(dec(p, words.shape[1]), words)
 
-            calls = logshift_calls(round_trip)
+            calls = calls_of("logshift", round_trip)
             del words
             for i, (word, pb, direction) in enumerate(calls):
                 ok = compare_logshift(f"{what} call {i + 1}", word, pb, direction,
