@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive trico_tpu_torch on one NVIDIA GPU: the chunked FP codec (f32 and
 f64, both chunk layouts, the reference layout also packed and parsed on the
-card), the BP and LZ4 integer codecs, whole v1 mesh archives and the CLI.
+card), the BP and LZ4 integer codecs, whole v1 mesh archives, the mesh codec
+over a mesh of shards (``trico_tpu_torch.parallel``) and the CLI.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -26,7 +27,9 @@ Phases, each fatal on failure:
    (bits 40-46 cycling) at (10752, 8192) (65536 slots per row, 16-bit slot
    ids in the decode: the ``logshift`` word's top bit set), and every call
    of the Lucy archive of phase 6 written and read at ``optimize=True`` in
-   both layouts; the plain versions run over blocks of rows. Besides,
+   both layouts, and every call of the same mesh (f32 and f64 vertices)
+   through ``compress_mesh`` / ``decompress_mesh`` on two shards; the
+   plain versions run over blocks of rows. Besides,
    predict and replay (both widths) at more exponents on words with NaN,
    inf, zero, subnormal and negative patterns, f32 predict also at (14,14),
    whose 128 KB of tables take a block of one warp. ``fcm_multi_xors``
@@ -89,15 +92,36 @@ Phases, each fatal on failure:
    ``ArchiveReader(device="cuda")`` bit-exact; and the bunny with one
    stream of every kind, whose archive must be the same bytes when written
    with ``device="cpu"``;
-7. run ``python -m trico_tpu_torch encode`` and ``decode`` on the bunny STL
+7. drive the mesh codec (``trico_tpu_torch.parallel``): Lucy at its
+   published size (14,025,025 vertices, 28,035,072 triangles, normals and
+   colors) through ``compress_mesh`` on ``make_mesh()`` (the one card),
+   byte-equal to ``ArchiveWriter(chunk_len=4096)``'s archive and read back
+   bit-exact by ``decompress_mesh`` with six sharded FP substreams; the
+   2M-vertex mesh of phase 6, f32 and f64 vertices, ``optimize=True`` and
+   ``"fast"``, on meshes of 1, 2 and 4 shards that list the card, every
+   archive the writer's bytes; the same through a process group of one over
+   NCCL (meshes of 1 and 4 shards: the gathers are ``dist.all_gather`` on
+   the card), and ``python -m trico_tpu_torch.parallel.mp_worker
+   --backend nccl`` as a world of one; two processes of the worker on the
+   card over gloo (NCCL refuses two ranks on one GPU), whose bytes must
+   equal the in-process archive of the same data; and a 100,000,000-point
+   cloud on the fewest shards whose peak fits half the card's memory, by
+   the bytes per value of a calibration run of 4,000,000 points on one
+   shard. The Lucy-size and the cloud legs run twice; the second run
+   records the largest call of each kernel (kept in host memory, so that
+   later legs' peaks do not hold it), which is held against its plain
+   version once the phase's launches are counted. One card: no scaling
+   figure;
+8. run ``python -m trico_tpu_torch encode`` and ``decode`` on the bunny STL
    as subprocesses, with ``--profile``: ``--chunked --device cuda`` (a v1
    archive, the in-process writer's bytes) and without ``--chunked`` (a v0
    archive written on the host, the in-process v0 writer's bytes); the
    geometry read back must equal the input and each report name its stages;
-8. print device-resident encode and decode GB/s (f32 in both layouts, f64,
+9. print device-resident encode and decode GB/s (f32 in both layouts, f64,
    BP32, BP64) and ``find_matches`` ms per 1 MiB block, from CUDA events;
-9. print the kernels line: each kernel's launches during phases 4-6 (each
-   must be > 0, and ``logshift`` must launch in phase 5), its largest
+10. print the kernels line: each kernel's launches during phases 4-7 (each
+   must be > 0 in phase 4; all but ``fcm_multi_xors`` in phases 6 and 7;
+   ``logshift`` in phase 5), by path (``launches_by_path``), its largest
    difference from the plain version, both times and the bound
    (``library_ms`` is null: no single PyTorch call computes any of the
    seven functions).
@@ -111,6 +135,9 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import math
+import os
+import socket
 import subprocess
 import sys
 import time
@@ -118,18 +145,21 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
 from trico_tpu_torch import (ArchiveReader, ArchiveWriter, _u32,  # noqa: E402
-                             _u64, chunked, native)
+                             _u64, chunked, native, profiling)
 from trico_tpu_torch.chunked import parse_validated_framing  # noqa: E402
 from trico_tpu_torch.codec import (_build, bp_ref, bp_torch,  # noqa: E402
                                    fp64_torch, fp_cuda, fp_ref, fp_torch,
                                    lz4_torch, transpose)
 from trico_tpu_torch.io.stl import (compute_triangle_normals,  # noqa: E402
                                     read_stl)
+from trico_tpu_torch.parallel import (make_mesh, mesh_codec,  # noqa: E402
+                                      mp_worker)
 
 N_VALUES = 1 << 23  # bench.py's f32 stream: 8M values
 N_F64 = 1 << 24  # bench.py's f64 stream: 16M doubles
@@ -148,6 +178,13 @@ BP_CHUNK = 16384  # the BP32 default (trico_tpu/chunked.py:464)
 BP64_CHUNK = 8192  # the BP64 cap (trico_tpu/chunked.py:481-484)
 LZ4_BLOCK = chunked.DEFAULT_LZ4_BLOCK  # 1 MiB
 LUCY_VERTS = 2_000_000  # bench.py:419-432, side 1414
+# Lucy at its published size (BASELINE.md: 28,055,742 triangles): side 3745,
+# 14,025,025 vertices and 28,035,072 triangles, the grid's nearest
+LUCY_PUBLISHED_VERTS = 14_027_872
+CLOUD_POINTS = 100_000_000  # BASELINE.json "configs": the 100M-point cloud
+CLOUD_CALIBRATION = 4_000_000  # points of the run that measures bytes per value
+MEMORY_SHARE = 0.5  # of the card's memory one shard of the cloud may take
+SHARD_COUNTS = (1, 2, 4)  # meshes that list the one card several times
 PLAIN_BLOCK = 1 << 26  # words of the first argument a plain call takes at once
 REF_CHUNKS = 256  # FP chunks a reference-layout capture takes
 WORK = REPO / "build" / "chip_smoke"  # the CLI's files (gitignored)
@@ -466,15 +503,20 @@ def fcm_shape_cases(words: torch.Tensor):
     return cases
 
 
-def record_calls(run):
-    """Run ``run()`` with every kernel wrapper recording what it was given."""
+def record_calls(run, largest=False):
+    """Run ``run()`` with every kernel wrapper recording a copy (on the
+    card) of what it was given: every call, or with ``largest`` only the
+    call whose first argument has the most elements. Returns the calls by
+    kernel."""
     seen = {k: [] for k in fp_cuda.KERNELS}
     real = {k: getattr(fp_cuda, k) for k in fp_cuda.KERNELS}
 
     def recorder(name):
         def call(*args):
-            seen[name].append(tuple(a.clone() if torch.is_tensor(a) else a
-                                    for a in args))
+            if not (largest and seen[name]
+                    and seen[name][0][0].numel() >= args[0].numel()):
+                copy = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+                seen[name] = [copy] if largest else seen[name] + [copy]
             return real[name](*args)
         return call
 
@@ -517,6 +559,33 @@ def plain_by_rows(plain, args):
     return torch.cat(parts)
 
 
+def on_host(calls: dict) -> dict:
+    """Recorded calls with their tensors moved to host memory, so that they
+    take none of the card's until they are held."""
+    return {k: [tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+                for args in v] for k, v in calls.items()}
+
+
+def hold(name: str, args, what: str, restores=None) -> int:
+    """One call of kernel ``name`` against its plain version (by blocks of
+    rows) on the same inputs: fails unless they agree exactly (and, where
+    ``restores`` is given, the kernel gives it back). Returns the max abs
+    err, 0."""
+    got = getattr(fp_cuda, name)(*args)
+    want = plain_by_rows(PLAIN[name], args[:PLAIN_ARGS.get(name, len(args))])
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0
+    for g, w in zip(got, want):
+        err = max(err, max_abs_err(g, w))
+    check(err == 0, f"{what}: kernel differs from its plain version (max abs "
+          f"err {err})")
+    if restores is not None:
+        check(torch.equal(got[0], restores), f"{what}: values not restored")
+    return err
+
+
 def capture_main_path_inputs(x, x64, raw, raw64, tflat, lucy):
     """Run the main paths once at their shapes and record what each kernel
     wrapper was given: f32 encode and decode at (4,6), the adaptive encode
@@ -524,8 +593,10 @@ def capture_main_path_inputs(x, x64, raw, raw64, tflat, lucy):
     device pack and parse, f64 encode and decode at (4,6), the
     reference-layout f32 and f64 legs, BP32 and BP64 encode and decode of
     the whole fullmesh stream, and the Lucy archive written and read at
-    ``optimize=True`` in both layouts. Returns the calls by kernel and,
-    apart, the BP legs' ``logshift`` calls."""
+    ``optimize=True`` in both layouts, and the same mesh with f32 and f64
+    vertices through ``compress_mesh`` / ``decompress_mesh`` on two shards
+    of the card (each plane's hash_info groups split in two). Returns the
+    calls by kernel and, apart, the BP legs' ``logshift`` calls."""
     bp32 = _u32.from_numpy(tflat.reshape(-1, BP_CHUNK)).cuda()
     bp64 = _u64.from_numpy(wide_indices(tflat).reshape(-1, BP64_CHUNK)).cuda()
 
@@ -566,7 +637,14 @@ def capture_main_path_inputs(x, x64, raw, raw64, tflat, lucy):
             data = write_archive(lucy, "cuda", layout=layout)
             read_archive(data, lucy, f"Lucy archive capture, layout={layout}")
 
-    seen = [record_calls(run) for run in (run_fp, run_bp, run_archives)]
+    def run_parallel():
+        verts, tris, normals, colors = lucy_arrays(lucy)
+        for v in (verts, verts.astype(np.float64)):
+            mesh_round_trip(v, tris, normals, colors, make_mesh(2),
+                            "parallel capture")
+
+    seen = [record_calls(run) for run in (run_fp, run_bp, run_archives,
+                                          run_parallel)]
     return ({k: sum((s[k] for s in seen), []) for k in fp_cuda.KERNELS},
             seen[1]["logshift"])
 
@@ -607,21 +685,8 @@ def kernel_phase(x, x64, raw, raw64, tflat, lucy):
         check(len(seen[name]) > 0, f"{name}: the main path never called it")
         kern, plain = getattr(fp_cuda, name), PLAIN[name]
         cases = [(args, None) for args in seen[name]] + extra[name]
-        err = 0
-        for i, (args, restores) in enumerate(cases):
-            got, want = kern(*args), plain_by_rows(
-                plain, args[:PLAIN_ARGS.get(name, len(args))])
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            for g, w in zip(got, want):
-                e = max_abs_err(g, w)
-                check(e == 0, f"{name} case {i}: kernel differs from its "
-                              f"plain version (max abs err {e})")
-                err = max(err, e)
-            if restores is not None:
-                check(torch.equal(got[0], restores),
-                      f"{name} case {i}: values not restored")
+        err = max(hold(name, args, f"{name} case {i}", restores)
+                  for i, (args, restores) in enumerate(cases))
         args0 = cases[0][0]
         out0 = kern(*args0)
         bound_ms, bound_by = bound_of(
@@ -1017,6 +1082,314 @@ def archive_phase(lucy, bunny_verts, bunny_tris) -> None:
           flush=True)
 
 
+def lucy_arrays(streams):
+    """(vertices, triangles, vertex normals, colors) of lucy_mesh's streams."""
+    d = dict(streams)
+    return (d["write_vertices"], d["write_triangles"], d["write_vertex_normals"],
+            d["write_vertex_colors"])
+
+
+def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        np.ascontiguousarray(a).reshape(-1).view(np.uint8),
+        np.ascontiguousarray(b).reshape(-1).view(np.uint8)))
+
+
+def mesh_round_trip(verts, tris, normals, colors, mesh, what, optimize=True,
+                    profile=None):
+    """``compress_mesh`` then ``decompress_mesh`` over ``mesh``: every
+    stream back bit-exact. Returns (archive, route_stats, compress s,
+    decompress s), host clock."""
+    t0 = time.perf_counter()
+    blob = mesh_codec.compress_mesh(verts, tris, vertex_normals=normals,
+                                    vertex_colors=colors, chunk_len=CHUNK_LEN,
+                                    mesh=mesh, optimize=optimize, profile=profile)
+    t1 = time.perf_counter()
+    stats = {}
+    out = mesh_codec.decompress_mesh(blob, mesh, route_stats=stats)
+    t2 = time.perf_counter()
+    for name, want in (("vertices", verts), ("triangles", tris),
+                       ("vertex_normals", normals), ("vertex_colors", colors)):
+        if want is not None:
+            check(same_bits(out[name], want), f"{what}: {name} not read back "
+                  "bit-exact by decompress_mesh")
+    return blob, stats, t1 - t0, t2 - t1
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def device_seconds(trace) -> float:
+    """Seconds of device time (kernels and copies) in a torch.profiler
+    trace: the self time of its CUDA events."""
+    total = 0
+    for e in trace.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            total += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+    return total / 1e6
+
+
+def point_cloud(n: int, seed: int = 0) -> np.ndarray:
+    """(n, 3) float32 points of a smooth seeded curve with a random walk on
+    each axis, like a scanner's sweep."""
+    r = np.random.default_rng(seed)
+    t = np.linspace(0.0, 2000 * np.pi, n)
+    pts = np.empty((n, 3), np.float32)
+    for k in range(3):
+        pts[:, k] = np.sin(t * (1 + 0.25 * k)) * 10 + np.cumsum(
+            r.standard_normal(n, dtype=np.float32) * np.float32(1e-3))
+    return pts
+
+
+def lucy_published_leg() -> dict:
+    """Leg 1: Lucy at its published size through ``compress_mesh`` on
+    ``make_mesh()`` (the one card), byte-equal to ``ArchiveWriter``'s
+    archive, every stream back bit-exact, six sharded FP substreams. A
+    second round trip records the largest call of each kernel, which it
+    returns."""
+    lucy = lucy_mesh(LUCY_PUBLISHED_VERTS)
+    verts, tris, normals, colors = lucy_arrays(lucy)
+    raw = sum(a.nbytes for _, a in lucy)
+    mesh = make_mesh()
+    check(mesh.size == torch.cuda.device_count() and mesh.group is None,
+          f"make_mesh(): {mesh}")
+    torch.cuda.reset_peak_memory_stats()
+    prof = profiling.StageTimer()
+    blob, stats, enc_s, dec_s = mesh_round_trip(
+        verts, tris, normals, colors, mesh, "Lucy at its published size",
+        profile=prof)
+    peak = peak_mib()
+    t0 = time.perf_counter()
+    want = write_archive(lucy, "cuda")
+    writer_s = time.perf_counter() - t0
+    check(blob == want, "Lucy at its published size: compress_mesh's archive "
+          "differs from ArchiveWriter's")
+    check(stats["sharded_fp"] == 6 and stats["host_other"] == 0,
+          f"Lucy route_stats {stats}")
+    print(f"parallel Lucy at its published size: {len(verts)} vertices, "
+          f"{len(tris)} triangles, normals and colors, {raw} B raw -> "
+          f"{len(blob)} B (ratio {raw / len(blob):.4f}) on {mesh}: "
+          f"compress_mesh {enc_s:.3f} s, decompress_mesh {dec_s:.3f} s (host "
+          f"clock; ArchiveWriter {writer_s:.3f} s), the bytes of ArchiveWriter, "
+          f"every stream bit-exact, route_stats {stats}; {peak} [{CARD}]",
+          flush=True)
+    print("  compress_mesh stages (host clock):\n  "
+          + prof.report().replace("\n", "\n  "), flush=True)
+    again = []
+    calls = record_calls(lambda: again.append(mesh_round_trip(
+        verts, tris, normals, colors, mesh, "Lucy at its published size, "
+        "recorded")[0]), largest=True)
+    check(again == [blob], "Lucy at its published size: the recorded round "
+          "trip's archive differs")
+    return on_host(calls)
+
+
+def shard_count_leg(lucy) -> dict:
+    """Leg 2: the 2M-vertex Lucy on meshes of 1, 2 and 4 shards of the one
+    card, f32 and f64 vertices, optimize=True and "fast": the same bytes
+    (those of ArchiveWriter) whatever the shard count, bit-exact. Returns
+    the archives by (dtype, optimize)."""
+    verts, tris, normals, colors = lucy_arrays(lucy)
+    check(make_mesh(2, device="cuda:0").shards == (torch.device("cuda", 0),) * 2,
+          "make_mesh(2, device='cuda:0') lists cuda:0 twice")
+    blobs = {}
+    for dt in (np.float32, np.float64):
+        v = verts.astype(dt)
+        streams = [("write_vertices" if dt == np.float32 else "write_vertices_double", v),
+                   *lucy[1:]]
+        for opt in (True, "fast"):
+            want = write_archive(streams, "cuda", optimize=opt)
+            for n in SHARD_COUNTS:
+                mesh = make_mesh(n)
+                check(mesh.shards == (torch.device("cuda", 0),) * n,
+                      f"make_mesh({n}) on one card: {mesh}")
+                torch.cuda.reset_peak_memory_stats()
+                what = f"Lucy {len(v)} vertices {np.dtype(dt).name} optimize={opt} on {n} shards"
+                blob, stats, enc_s, dec_s = mesh_round_trip(
+                    v, tris, normals, colors, mesh, what, optimize=opt)
+                check(blob == want, f"{what}: the bytes differ from ArchiveWriter's")
+                print(f"parallel {what}: {len(blob)} B, the bytes of ArchiveWriter; "
+                      f"compress_mesh {enc_s:.3f} s, decompress_mesh {dec_s:.3f} s "
+                      f"(host clock), bit-exact, route_stats {stats}; "
+                      f"{peak_mib()} [{CARD}]", flush=True)
+            blobs[dt, opt] = want
+    flat = tris.reshape(-1)
+    for words, chunk_len in ((flat, BP_CHUNK), (wide_indices(flat), BP64_CHUNK)):
+        cont = chunked.encode_bp_chunked(words, chunk_len)
+        for n in SHARD_COUNTS:
+            t0 = time.perf_counter()
+            back = mesh_codec.decode_bp_sharded(cont, make_mesh(n))
+            check(back.dtype == words.dtype and np.array_equal(back, words),
+                  f"decode_bp_sharded {words.dtype} on {n} shards")
+            print(f"parallel decode_bp_sharded: {len(words)} {words.dtype} "
+                  f"triangle indices in chunks of {chunk_len} on {n} shards, "
+                  f"{time.perf_counter() - t0:.3f} s (host clock), bit-exact "
+                  f"[{CARD}]", flush=True)
+    return blobs
+
+
+def run_workers(argvs) -> tuple[list[bytes], float]:
+    """One process of ``python -m trico_tpu_torch.parallel.mp_worker`` per
+    argument list (RANK NPROC PORT OUT, flags), all at once; fails unless
+    each exits 0. Returns the archive each wrote (``OUT.rank<RANK>``) and
+    the host-clock seconds for all of them, start-up included."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "trico_tpu_torch.parallel.mp_worker",
+         *map(str, argv)], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for argv in argvs]
+    try:
+        texts = [p.communicate(timeout=300)[0].decode(errors="replace")
+                 for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for argv, p, text in zip(argvs, procs, texts):
+        check(p.returncode == 0, f"mp_worker {argv} failed:\n{text[-3000:]}")
+    return [Path(f"{argv[3]}.rank{argv[0]}").read_bytes() for argv in argvs], seconds
+
+
+def nccl_leg(lucy, want: bytes) -> None:
+    """Leg 3: a process group of one over NCCL in this process; meshes of 1
+    and 4 shards then run the collectives (dist.all_gather on the card)
+    and must give leg 2's bytes. Then ``mp_worker --backend nccl`` as a
+    world of one, four shards, must give the in-process archive of its
+    data."""
+    verts, tris, normals, colors = lucy_arrays(lucy)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        for n in (1, 4):
+            mesh = make_mesh(n)
+            check(mesh.group is not None and mesh.world_size == 1
+                  and mesh.size == n, f"make_mesh({n}) under NCCL: {mesh}")
+            torch.cuda.reset_peak_memory_stats()
+            blob, stats, enc_s, dec_s = mesh_round_trip(
+                verts, tris, normals, colors, mesh, f"NCCL group of one, {n} shards")
+            check(blob == want, f"NCCL group of one, {n} shards: the bytes differ")
+            print(f"parallel NCCL process group of one, {n} shards on "
+                  f"cuda:0 (sizes and payload rows through dist.all_gather on "
+                  f"the card): {len(blob)} B, leg 2's bytes; compress_mesh "
+                  f"{enc_s:.3f} s, decompress_mesh {dec_s:.3f} s (host clock), "
+                  f"bit-exact; {peak_mib()} [{CARD}]", flush=True)
+    finally:
+        dist.destroy_process_group()
+    (blob,), seconds = run_workers([[0, 1, free_port(), WORK / "nccl_blob",
+                                     "--backend", "nccl", "--shards-per-rank", 4]])
+    check(blob == mp_worker.worker_blobs(make_mesh(4)),
+          "mp_worker --backend nccl: its bytes differ from the in-process archive")
+    print(f"parallel mp_worker --backend nccl, a world of one, four shards on "
+          f"cuda:0: {len(blob)} B, the bytes of the in-process mesh of four "
+          f"shards; {seconds:.1f} s (host clock, start-up included) [{CARD}]",
+          flush=True)
+
+
+def two_process_leg() -> None:
+    """Leg 4: two processes of ``python -m trico_tpu_torch.parallel.
+    mp_worker`` on the one card (its default device), two shards each, over
+    gloo (NCCL refuses two ranks on one GPU): both ranks' bytes equal the
+    in-process archive of the same data on a mesh of four shards."""
+    port = free_port()
+    blobs, seconds = run_workers([[rank, 2, port, WORK / "mp_blob",
+                                   "--shards-per-rank", 2] for rank in (0, 1)])
+    torch.cuda.reset_peak_memory_stats()
+    want = mp_worker.worker_blobs(make_mesh(4))
+    check(blobs[0] == blobs[1] == want, "two processes on the card: the ranks' "
+          "bytes differ from each other or from the in-process archive")
+    print(f"parallel two processes on cuda:0 over gloo (NCCL refuses two ranks "
+          f"on one GPU), two shards each: {len(want)} B from each rank, the "
+          f"bytes of the in-process mesh of four shards; {seconds:.1f} s for "
+          f"both processes (host clock, start-up included); in-process "
+          f"{peak_mib()} [{CARD}]", flush=True)
+
+
+def cloud_leg() -> dict:
+    """Leg 5: the 100M-point cloud, compress_mesh then decompress_mesh,
+    bit-exact, on the fewest shards of the one card whose peak fits
+    MEMORY_SHARE of its memory, by the bytes per value of a calibration run
+    of CLOUD_CALIBRATION points on one shard. A second round trip, under
+    the profiler, records the largest call of each kernel, which it
+    returns."""
+    t0 = time.perf_counter()
+    pts = point_cloud(CLOUD_POINTS)
+    gen_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    mesh_round_trip(pts[:CLOUD_CALIBRATION], None, None, None, make_mesh(1),
+                    "point cloud calibration")
+    per_value = torch.cuda.max_memory_allocated() / (3 * CLOUD_CALIBRATION)
+    total = torch.cuda.get_device_properties(0).total_memory
+    shards = max(1, math.ceil(pts.size * per_value / (MEMORY_SHARE * total)))
+    mesh = make_mesh(shards)
+    torch.cuda.reset_peak_memory_stats()
+    prof = profiling.StageTimer()
+    blob, stats, enc_s, dec_s = mesh_round_trip(
+        pts, None, None, None, mesh, "point cloud", profile=prof)
+    check(stats["sharded_fp"] == 3, f"point cloud route_stats {stats}")
+    peak = peak_mib()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    runs = []
+    with torch.profiler.profile(activities=acts) as trace:
+        calls = record_calls(lambda: runs.append(mesh_round_trip(
+            pts, None, None, None, mesh, "point cloud under the profiler")),
+            largest=True)
+    again, _, enc2_s, dec2_s = runs[0]
+    check(again == blob, "point cloud: the second archive differs")
+    busy = device_seconds(trace)
+    print(f"parallel point cloud: {len(pts)} xyz f32 points ({pts.nbytes} B; "
+          f"generated in {gen_s:.1f} s) -> {len(blob)} B (ratio "
+          f"{pts.nbytes / len(blob):.4f}) on {shards} shards of cuda:0 (the "
+          f"calibration of {CLOUD_CALIBRATION} points on one shard peaked at "
+          f"{per_value:.1f} B per value; a shard may take {MEMORY_SHARE} of "
+          f"{total / 2**20:.0f} MiB): compress_mesh {enc_s:.3f} s, "
+          f"decompress_mesh {dec_s:.3f} s (host clock), bit-exact, route_stats "
+          f"{stats}; {peak} [{CARD}]", flush=True)
+    print("  compress_mesh stages (host clock):\n  "
+          + prof.report().replace("\n", "\n  "), flush=True)
+    print(f"  again under torch.profiler, recording the largest call of each "
+          f"kernel (a copy on the card): compress_mesh {enc2_s:.3f} s, "
+          f"decompress_mesh {dec2_s:.3f} s; the card busy (kernels and copies) "
+          f"{busy:.3f} s of them, a share of {busy / (enc2_s + dec2_s):.3f} "
+          f"[{CARD}]", flush=True)
+    return on_host(calls)
+
+
+def parallel_phase(lucy) -> dict:
+    """Phase 7: the mesh codec of ``trico_tpu_torch.parallel``. Returns
+    the largest call of each kernel in the Lucy-size and the cloud legs."""
+    lucy_calls = lucy_published_leg()
+    blobs = shard_count_leg(lucy)
+    nccl_leg(lucy, blobs[np.float32, True])
+    two_process_leg()
+    return {"Lucy at its published size": lucy_calls, "point cloud": cloud_leg()}
+
+
+def hold_leg_calls(legs: dict, results: dict) -> None:
+    """The largest call of each kernel in the parallel phase's big legs
+    (kept in host memory) against its plain version on the card, by blocks
+    of rows: exact; each kernel's max abs err takes them in."""
+    for leg, calls in legs.items():
+        for name, cases in calls.items():
+            for args in cases:
+                args = tuple(a.cuda() if torch.is_tensor(a) else a for a in args)
+                t0 = time.perf_counter()
+                err = hold(name, args, f"{name}, the {leg}'s largest call")
+                results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+                print(f"kernel {name} at {tuple(args[0].shape)}, the largest "
+                      f"call of the parallel {leg}: exact against its plain "
+                      f"version ({time.perf_counter() - t0:.1f} s) [{CARD}]",
+                      flush=True)
+    legs.clear()
+
+
 def cli_phase(bunny_verts, bunny_tris) -> None:
     """Phase 7: the CLI as subprocesses, a v1 archive on the card (the
     default, and with --chunked) and a v0 archive on the host (--backend),
@@ -1152,13 +1525,16 @@ def main() -> int:
     # each path runs with the launch counts at 0 and is read just after
     paths = {"fp": lambda: main_path_phase(raw, raw64),
              "integer": lambda: integer_phase(tflat),
-             "archive": lambda: archive_phase(lucy, bunny_verts, bunny_tris)}
-    by_path = {}
+             "archive": lambda: archive_phase(lucy, bunny_verts, bunny_tris),
+             "parallel": lambda: parallel_phase(lucy)}
+    by_path, returned = {}, {}
     for path, run in paths.items():
         fp_cuda.reset_launches()
-        run()
+        returned[path] = run()
         torch.cuda.synchronize()
         by_path[path] = dict(fp_cuda.launches)
+    # the parallel path's largest calls, held once its count is read
+    hold_leg_calls(returned["parallel"], kern)
     cli_phase(bunny_verts, bunny_tris)
 
     throughput_phase(x, x64, tflat)
@@ -1169,8 +1545,9 @@ def main() -> int:
     for name in fp_cuda.KERNELS:
         check(by_path["fp"][name] > 0, f"{name}: no launch in the FP path")
         if name != "fcm_multi_xors":  # only the custom candidate set has it
-            check(by_path["archive"][name] > 0,
-                  f"{name}: no launch in the archive path")
+            for path in ("archive", "parallel"):
+                check(by_path[path][name] > 0,
+                      f"{name}: no launch in the {path} path")
         replaces, also = REPLACES[name]
         row = {"name": name, "route": "cuda", "source": SOURCE,
                "replaces": replaces,

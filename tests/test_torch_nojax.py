@@ -1,7 +1,9 @@
 """trico_tpu_torch stands alone: it imports, round-trips FP, BP and LZ4
-containers, writes and reads v0 and v1 archives of every stream kind and runs
+containers, writes and reads v0 and v1 archives of every stream kind, runs
+``compress_mesh`` / ``decompress_mesh`` on a mesh of two CPU shards and runs
 its CLI with both JAX and trico_tpu blocked, with and without the C++ host
-library, and no source of the port imports JAX or anything of trico_tpu."""
+library, and no source of the port (``parallel/`` included) imports JAX or
+anything of trico_tpu."""
 
 import re
 import subprocess
@@ -94,6 +96,24 @@ assert r.version == 0
 for (method, arr), (st, back) in zip(kinds, list(r.streams())):
     assert np.array_equal(back.reshape(arr.shape), arr), ("v0", method)
 
+from trico_tpu_torch.parallel import make_mesh, compress_mesh, decompress_mesh
+mesh = make_mesh(2, device="cpu")
+mesh_streams = dict(vertices=f(3, np.float32, 7), triangles=tri,
+                    vertex_normals=f(3, np.float32, 8),
+                    vertex_colors=(np.arange(n) // 7).astype(np.uint32))
+for opt in (True, "fast", False):
+    for dt in (np.float32, np.float64):
+        verts = mesh_streams["vertices"].astype(dt)
+        blob = compress_mesh(verts, tri, vertex_normals=mesh_streams["vertex_normals"],
+                             vertex_colors=mesh_streams["vertex_colors"],
+                             chunk_len=256, mesh=mesh, optimize=opt)
+        stats = {{}}
+        out = decompress_mesh(blob, mesh, route_stats=stats)
+        assert stats["sharded_fp"] == 6 and stats["sharded_bp"] >= 1, stats
+        for name, want in dict(mesh_streams, vertices=verts).items():
+            assert out[name].dtype == want.dtype, name
+            assert np.array_equal(out[name], want), (name, opt, dt)
+
 import tempfile
 from trico_tpu_torch import cli
 from trico_tpu_torch.io import stl
@@ -137,6 +157,8 @@ def test_sources_name_no_jax():
     ]
     files = sorted((REPO / "trico_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    parallel = {f.name for f in files if f.parent.name == "parallel"}
+    assert {"__init__.py", "mesh_codec.py", "mp_worker.py"} <= parallel
     for f in files:
         text = f.read_text()
         assert not any(p.search(text) for p in patterns), f

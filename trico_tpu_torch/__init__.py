@@ -2,8 +2,8 @@
 written for the NVIDIA H100 (sm_90a).
 
 A second package beside :mod:`trico_tpu`, which stays the reference: the same
-inputs give the same bytes. Ported so far is every path of a single-device
-v1 mesh archive:
+inputs give the same bytes. Ported is every module of ``trico_tpu``: every
+path of a v1 mesh archive, on one device or over several:
 
 * :mod:`trico_tpu_torch.archive` — ``ArchiveWriter`` / ``ArchiveReader`` (v1
   substreams on a torch device, v0 on the host);
@@ -26,6 +26,10 @@ v1 mesh archive:
   chunks, v0 archives, reference-layout pack and parse, LZ4 emit), with the
   NumPy oracles ``codec.fp_ref``, ``bp_ref``, ``lz4_ref`` and
   ``codec.transpose`` as its fallback;
+* :mod:`trico_tpu_torch.parallel` — ``make_mesh``, ``compress_mesh`` and
+  ``decompress_mesh``: the chunks of every float stream split over the
+  shards of a mesh of devices, across processes by ``torch.distributed``
+  (``trico_tpu.parallel.mesh_codec``);
 * :mod:`trico_tpu_torch.io` — the STL and PLY readers and writers;
 * :mod:`trico_tpu_torch.profiling` — ``StageTimer``, ``trace``, ``annotate``.
 
@@ -35,7 +39,7 @@ runs on ``device="cuda"`` unless the caller asks for ``"cpu"``, and raises
 where there is no card.
 """
 
-from . import _u32, _u64, archive, chunked, native
+from . import _u32, _u64, archive, chunked, native, parallel
 from .archive import ArchiveReader, ArchiveWriter, StreamType
 from .chunked import (decode_bp_chunked, decode_chunked, decode_lz4_chunked,
                       encode_bp_chunked, encode_chunked, encode_int_best,
@@ -51,5 +55,5 @@ __all__ = ["ArchiveReader", "ArchiveWriter", "PlyMesh", "StreamType", "_u32",
            "decode_bp_chunked", "decode_chunked", "decode_lz4_chunked",
            "encode_bp_chunked", "encode_chunked", "encode_int_best",
            "encode_lz4_chunked", "fp64_torch", "fp_cuda", "fp_torch",
-           "lz4_torch", "native", "pack_funnel", "read_ply", "read_stl",
+           "lz4_torch", "native", "pack_funnel", "parallel", "read_ply", "read_stl",
            "write_ply", "write_stl", "__version__"]
