@@ -16,7 +16,8 @@ Phases, each fatal on failure:
 3. hold each of the seven kernels against its plain PyTorch version on the
    card, at the shapes the main paths give it: the f32 bench stream (8M
    values, chunks of 4096, exponents (4,6), 16384 slots per parse row),
-   its reference-layout encode and decode through the device pack and parse
+   the bench's second shape (its leg 3: 8M values in 8192 chunks of 1024 at
+   (4,6), which gives ``replay`` 16 chunks per block), its reference-layout encode and decode through the device pack and parse
    (one ``logshift`` call at (2048, 17925), rows 4 bytes off the 16-byte
    grid), the adaptive encode with candidates ((0,6),(4,6),(8,6),(4,10)),
    which gives ``fcm_multi_xors`` e1s=(8,), the f64 bench stream (16M
@@ -119,9 +120,16 @@ Phases, each fatal on failure:
    geometry read back must equal the input and each report name its stages;
 9. print device-resident encode and decode GB/s (f32 in both layouts, f64,
    BP32, BP64) and ``find_matches`` ms per 1 MiB block, from CUDA events;
-10. print the kernels line: each kernel's launches during phases 4-7 (each
-   must be > 0 in phase 4; all but ``fcm_multi_xors`` in phases 6 and 7;
-   ``logshift`` in phase 5), by path (``launches_by_path``), its largest
+10. run the port's benchmark, ``python -m trico_tpu_torch.bench``, at its
+   defaults as a subprocess (bench.py's eight legs at bench.py's sizes):
+   it must exit 0 with every leg bit-exact, leg 1's f32 (4,6) ratio equal
+   to phase 9's on the same stream, and ``predict_xors``,
+   ``pair_compact_or``, ``logshift``, ``replay``, ``predict64_xors`` and
+   ``replay64`` launched; its result line is printed with the card's name;
+11. print the kernels line: each kernel's launches during phases 4-7 and
+   10 (each must be > 0 in phase 4; all but ``fcm_multi_xors`` in phases 6,
+   7 and 10; ``logshift`` in phase 5), by path (``launches_by_path``: the
+   bench's as it counted them in its own process), its largest
    difference from the plain version, both times and the bound
    (``library_ms`` is null: no single PyTorch call computes any of the
    seven functions).
@@ -151,7 +159,7 @@ REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
 from trico_tpu_torch import (ArchiveReader, ArchiveWriter, _u32,  # noqa: E402
-                             _u64, chunked, native, profiling)
+                             _u64, bench, chunked, native, profiling)
 from trico_tpu_torch.chunked import parse_validated_framing  # noqa: E402
 from trico_tpu_torch.codec import (_build, bp_ref, bp_torch,  # noqa: E402
                                    fp64_torch, fp_cuda, fp_ref, fp_torch,
@@ -160,6 +168,10 @@ from trico_tpu_torch.io.stl import (compute_triangle_normals,  # noqa: E402
                                     read_stl)
 from trico_tpu_torch.parallel import (make_mesh, mesh_codec,  # noqa: E402
                                       mp_worker)
+# the bench's generators: bench.py's streams, triangles and Lucy-class mesh
+from trico_tpu_torch.bench import (CANARY_LEN, bench_stream,  # noqa: E402
+                                   bench_stream64, canary_stream,
+                                   fullmesh_indices)
 
 N_VALUES = 1 << 23  # bench.py's f32 stream: 8M values
 N_F64 = 1 << 24  # bench.py's f64 stream: 16M doubles
@@ -173,7 +185,6 @@ REPAIR_EXP = (16, 16)  # tables past any block: the sort predictor
 # an adaptive set with a 3-member e2 group: fcm_multi_xors gets e1s=(8,)
 CUSTOM_CANDIDATES = ((0, 6), (4, 6), (8, 6), (4, 10))
 FCM_EXTRA_E1S = (2, 6, 8)
-FULLMESH_TRIANGLES = 28 << 20  # bench.py:231: 88,080,384 u32 indices
 BP_CHUNK = 16384  # the BP32 default (trico_tpu/chunked.py:464)
 BP64_CHUNK = 8192  # the BP64 cap (trico_tpu/chunked.py:481-484)
 LZ4_BLOCK = chunked.DEFAULT_LZ4_BLOCK  # 1 MiB
@@ -231,6 +242,7 @@ CARD = "unknown card"  # name and power limit, set by main()
 # chunk lengths off the replay kernel's grids (tile, 4-value vector, warp)
 REPLAY_ODD_LENS = {"replay": (8, 40, CHUNK_LEN + 8),
                    "replay64": (2, 38, 2 * 2051)}
+BENCH_TIMEOUT = 400  # seconds the bench may take (40-90 s expected)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: device memory rate
 INT_OPS_PER_S = 67e12  # H100 SXM: 32-bit rate outside the tensor cores
 # integer operations per element of the first argument (per output plane for
@@ -247,22 +259,6 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
-
-
-def bench_stream(n: int) -> np.ndarray:
-    """bench.py's f32 stream (bench.py:87-90), as uint32 bits."""
-    r = np.random.default_rng(0)
-    t = np.linspace(0, 500 * np.pi, n)
-    vals = (np.sin(t) * 10 + np.cumsum(r.normal(0, 1e-3, n))).astype(np.float32)
-    return vals.view(np.uint32)
-
-
-def bench_stream64(n: int) -> np.ndarray:
-    """bench.py's f64 stream (bench.py:290-293), as uint64 bits."""
-    r = np.random.default_rng(3)
-    vals = (np.cumsum(r.normal(0, 1e-3, n))
-            + np.sin(np.linspace(0., 3000., n)) * 10)
-    return vals.view(np.uint64)
 
 
 def special_words(C: int, L: int, seed: int = 1) -> np.ndarray:
@@ -530,13 +526,6 @@ def record_calls(run, largest=False):
     return seen
 
 
-def fullmesh_indices() -> np.ndarray:
-    """bench.py:231-236's triangle stream: 3 * 28 * 2^20 u32 indices, the
-    largest 29,361,164 (so no byte plane is constant)."""
-    i = np.arange(3 * FULLMESH_TRIANGLES, dtype=np.uint32)
-    return i // 3 + (i % 3) * 7 + i % 1024
-
-
 def wide_indices(t: np.ndarray) -> np.ndarray:
     """The indices as u64 with bits 40-46 cycling through 0..96: zigzag
     deltas past 2^40, so every group needs more than 32 planes."""
@@ -588,8 +577,9 @@ def hold(name: str, args, what: str, restores=None) -> int:
 
 def capture_main_path_inputs(x, x64, raw, raw64, tflat, lucy):
     """Run the main paths once at their shapes and record what each kernel
-    wrapper was given: f32 encode and decode at (4,6), the adaptive encode
-    with the custom candidate set, the f32 reference layout through the
+    wrapper was given: f32 encode and decode at (4,6), the same of the
+    bench's second shape ((8192, 1024), its leg 3), the adaptive encode with
+    the custom candidate set, the f32 reference layout through the
     device pack and parse, f64 encode and decode at (4,6), the
     reference-layout f32 and f64 legs, BP32 and BP64 encode and decode of
     the whole fullmesh stream, and the Lucy archive written and read at
@@ -605,6 +595,13 @@ def capture_main_path_inputs(x, x64, raw, raw64, tflat, lucy):
         back = fp_torch.decode_f32_chunks_v2(payloads, x.shape[1], *EXP)
         check(torch.equal(back, x), "f32 encode/decode round trip at the "
               "bench shape")
+        xc = _u32.from_numpy(canary_stream(N_VALUES).reshape(
+            -1, CANARY_LEN)).cuda()
+        payloads, _ = fp_torch.encode_f32_chunks_v2(xc, *EXP)
+        back = fp_torch.decode_f32_chunks_v2(payloads, CANARY_LEN, *EXP)
+        check(torch.equal(back, xc), "f32 encode/decode round trip at the "
+              "bench's second shape")
+        del xc, back
         fp_torch.encode_f32_chunks_v2_adaptive(x, CUSTOM_CANDIDATES)
         payloads, _ = fp_torch.encode_f32_chunks(x, *EXP)
         back = fp_torch.decode_f32_chunks(payloads, x.shape[1], *EXP)
@@ -983,23 +980,10 @@ def integer_phase(tflat: np.ndarray) -> None:
 
 
 def lucy_mesh(n_verts: int):
-    """bench.py:419-432's synthetic Lucy-class mesh (a smooth scan surface
-    on a grid), with vertex normals and u32 colors quantised from the
-    positions (alpha 0xFF)."""
-    side = int(np.sqrt(n_verts))
-    th = np.linspace(0.2, np.pi - 0.2, side, dtype=np.float32)[:, None]
-    ph = np.linspace(0.0, 1.7 * np.pi, side, dtype=np.float32)[None, :]
-    r = 10.0 + np.cumsum(np.random.default_rng(0).normal(
-        0, 1e-3, (side, side)).astype(np.float32), axis=1)
-    verts = np.stack([(r * np.sin(th) * np.cos(ph)).ravel(),
-                      (r * np.sin(th) * np.sin(ph)).ravel(),
-                      (r * np.cos(th) * np.ones_like(ph)).ravel()],
-                     axis=1).astype(np.float32)
-    i, j = np.meshgrid(np.arange(side - 1), np.arange(side - 1), indexing="ij")
-    v00 = (i * side + j).ravel()
-    v01, v10 = v00 + 1, v00 + side
-    tris = np.concatenate([np.stack([v00, v10, v01], 1),
-                           np.stack([v01, v10, v10 + 1], 1)]).astype(np.uint32)
+    """bench.py:419-432's synthetic Lucy-class mesh (``bench.lucy_mesh``),
+    with vertex normals and u32 colors quantised from the positions (alpha
+    0xFF)."""
+    verts, tris = bench.lucy_mesh(n_verts)
     normals = (verts / np.linalg.norm(verts, axis=1, keepdims=True)).astype(np.float32)
     return [("write_vertices", verts), ("write_triangles", tris),
             ("write_vertex_normals", normals),
@@ -1438,10 +1422,12 @@ def cli_phase(bunny_verts, bunny_tris) -> None:
               flush=True)
 
 
-def throughput_phase(x, x64, tflat):
-    """Phase 8: device-resident encode and decode rates."""
-    def report(what, words, enc, dec=None):
-        """Encode (and decode) rates of (C, L) words; decode must restore."""
+def throughput_phase(x, x64, tflat) -> float:
+    """Phase 9: device-resident encode and decode rates. Returns the f32
+    (4,6) ratio."""
+    def report(what, words, enc, dec=None) -> float:
+        """Encode (and decode) rates of (C, L) words; decode must restore.
+        Returns the ratio."""
         nbytes = words.numel() * words.element_size()
         payloads, sizes = enc(words)
         enc_ms = time_ms(lambda: enc(words), 10)
@@ -1453,11 +1439,12 @@ def throughput_phase(x, x64, tflat):
                   f"device-resident round trip, {what}")
             dec_ms = time_ms(lambda: dec(payloads), 10)
             line += f", decode {nbytes / dec_ms / 1e6:.3f} GB/s ({dec_ms:.3f} ms)"
-        print(f"{line}, ratio {nbytes / float(sizes.sum().item()):.4f} "
-              f"[{CARD}]", flush=True)
+        ratio = nbytes / float(sizes.sum().item())
+        print(f"{line}, ratio {ratio:.4f} [{CARD}]", flush=True)
+        return ratio
 
     L = CHUNK_LEN
-    report("f32 (4,6)", x, lambda w: fp_torch.encode_f32_chunks_v2(w, *EXP),
+    ratio = report("f32 (4,6)", x, lambda w: fp_torch.encode_f32_chunks_v2(w, *EXP),
            lambda p: fp_torch.decode_f32_chunks_v2(p, L, *EXP))
     report("f32 (4,6), reference layout packed and parsed on the device", x,
            lambda w: fp_torch.encode_f32_chunks(w, *EXP),
@@ -1489,17 +1476,47 @@ def throughput_phase(x, x64, tflat):
           f"{blocks.shape[0]} blocks of {LZ4_BLOCK} B in {all_ms:.3f} ms, "
           f"{all_ms / blocks.shape[0]:.4f} ms per block; one block alone "
           f"{one_ms:.4f} ms; {peak_mib()}", flush=True)
+    return ratio
+
+
+def bench_phase(f32_ratio: float) -> dict:
+    """Phase 10: ``python -m trico_tpu_torch.bench`` at its defaults, alone
+    in a process: every leg exact, leg 1's ratio that of phase 9 on the
+    same stream. Returns the bench's launches by kernel (counted from 0 in
+    its process)."""
+    torch.cuda.empty_cache()  # the card's memory is the bench's
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TRICO_BENCH_")}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "trico_tpu_torch.bench"],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    for log in out.stderr.splitlines()[-20:]:
+        print(f"  {log}")
+    check(out.returncode == 0, f"the bench exited {out.returncode}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    e = line["extra"]
+    exact = {"headline": e["exact"], "miscompile_canary": e["miscompile_canary"],
+             "scale": e["scale"]["lucy42M"]["exact"],
+             "fullmesh": e["fullmesh"]["exact"], "f64": e["f64"]["exact"],
+             "bunny": e["bunny_exact"], "bunny_v1": e["bunny_v1_exact"],
+             "fullmesh_archive": e["fullmesh_archive"]["exact"]}
+    check(all(exact.values()) and "inexact_roundtrip" not in e,
+          f"the bench's round trips: {exact}")
+    check(e["ratio"] == f32_ratio,
+          f"the bench's f32 ratio {e['ratio']} is not phase 9's {f32_ratio}")
+    check(e["backend"] == "cuda", f"the bench ran on {e['backend']}")
+    print(f"bench ({seconds:.1f} s in all) [{CARD}]: {json.dumps(line)}",
+          flush=True)
+    return e["kernel_launches"]
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
     global CARD
-    CARD = smi[0]
+    CARD = ", ".join(bench.card(torch.device("cuda", 0)).values())
     print(f"gpu: {CARD}", flush=True)
 
     t0 = time.perf_counter()
@@ -1537,15 +1554,18 @@ def main() -> int:
     hold_leg_calls(returned["parallel"], kern)
     cli_phase(bunny_verts, bunny_tris)
 
-    throughput_phase(x, x64, tflat)
+    f32_ratio = throughput_phase(x, x64, tflat)
+    by_path["bench"] = bench_phase(f32_ratio)
 
     check(by_path["integer"]["logshift"] > 0, "logshift: no launch in the "
           "integer path")
     rows = []
     for name in fp_cuda.KERNELS:
         check(by_path["fp"][name] > 0, f"{name}: no launch in the FP path")
-        if name != "fcm_multi_xors":  # only the custom candidate set has it
-            for path in ("archive", "parallel"):
+        # only the custom candidate set has fcm_multi_xors: no e2 group of
+        # the built-in candidates has two nonzero e1
+        if name != "fcm_multi_xors":
+            for path in ("archive", "parallel", "bench"):
                 check(by_path[path][name] > 0,
                       f"{name}: no launch in the {path} path")
         replaces, also = REPLACES[name]

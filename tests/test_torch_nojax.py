@@ -1,9 +1,10 @@
 """trico_tpu_torch stands alone: it imports, round-trips FP, BP and LZ4
 containers, writes and reads v0 and v1 archives of every stream kind, runs
-``compress_mesh`` / ``decompress_mesh`` on a mesh of two CPU shards and runs
-its CLI with both JAX and trico_tpu blocked, with and without the C++ host
-library, and no source of the port (``parallel/`` included) imports JAX or
-anything of trico_tpu."""
+``compress_mesh`` / ``decompress_mesh`` on a mesh of two CPU shards, runs
+its CLI and its bench (``trico_tpu_torch.bench.run``, smallest sizes) with
+both JAX and trico_tpu blocked, with and without the C++ host library, and
+no source of the port (``parallel/`` and ``bench.py`` included) imports JAX
+or anything of trico_tpu."""
 
 import re
 import subprocess
@@ -130,6 +131,11 @@ with tempfile.TemporaryDirectory() as d:
     from trico_tpu_torch import profiling
     with profiling.trace(d + "/trace"), profiling.annotate("encode"):
         tt.encode_chunked(vals, 1024, layout="ref", device="cpu")
+from trico_tpu_torch import bench
+line = bench.run(device="cpu", n_values=64 * 16, chunk_len=64, canary_len=64,
+                 bp_chunk=1024, archive_verts=400, reps=1)
+assert line["extra"]["exact"] and line["extra"]["fullmesh_archive"]["exact"]
+assert "inexact_roundtrip" not in line["extra"], line
 assert sys.modules["jax"] is None and sys.modules["trico_tpu"] is None
 print("ok")
 """
@@ -159,6 +165,7 @@ def test_sources_name_no_jax():
     assert len(files) > 15
     parallel = {f.name for f in files if f.parent.name == "parallel"}
     assert {"__init__.py", "mesh_codec.py", "mp_worker.py"} <= parallel
+    assert REPO / "trico_tpu_torch" / "bench.py" in files
     for f in files:
         text = f.read_text()
         assert not any(p.search(text) for p in patterns), f

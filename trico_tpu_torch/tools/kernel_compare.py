@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from .. import _u32, _u64
+from ..bench import fullmesh_indices
 from ..codec import _build, bp_torch, fp_cuda, fp_torch
 from .replay_sweep import (EXP, HBM_BYTES_PER_S, L, _smi, finish_build,
                            load_parent, start_build, streams, time_ms)
@@ -71,12 +72,6 @@ SHIFT_VARIANTS = {"tiles of 1024": ["-DTT_SHIFT_VEC=1", "-DTT_SHIFT_KERNEL=1"],
 PREDICT_VARIANTS = {f"depth {d}": [f"-DTT_PREDICT_DEPTH={d}"] for d in (1, 2, 8)}
 FCM_VARIANTS = {f"depth {d}": [f"-DTT_FCM_DEPTH={d}"] for d in (1, 2, 8)}
 FCM_E1S = ((8,), (2, 6, 8))
-
-
-def fullmesh_indices() -> np.ndarray:
-    """The triangle stream of bench.py:231-236: 3 * 28 * 2^20 u32 indices."""
-    i = np.arange(3 * (28 << 20), dtype=np.uint32)
-    return i // 3 + (i % 3) * 7 + i % 1024
 
 
 def calls_of(name, run) -> list:

@@ -30,10 +30,10 @@ import sys
 import tempfile
 from pathlib import Path
 
-import numpy as np
 import torch
 
 from .. import _u32, _u64
+from ..bench import bench_stream, bench_stream64
 from ..codec import _build, fp64_torch, fp_cuda, fp_torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -62,15 +62,8 @@ def time_ms(fn, reps: int = 20) -> float:
 
 def streams():
     """The two bench streams as (C, L) words on the card."""
-    r = np.random.default_rng(0)
-    n = 1 << 23
-    f32 = (np.sin(np.linspace(0, 500 * np.pi, n)) * 10
-           + np.cumsum(r.normal(0, 1e-3, n))).astype(np.float32)
-    r = np.random.default_rng(3)
-    n = 1 << 24
-    f64 = np.cumsum(r.normal(0, 1e-3, n)) + np.sin(np.linspace(0., 3000., n)) * 10
-    return (_u32.from_numpy(f32.view(np.uint32).reshape(-1, L)).cuda(),
-            _u64.from_numpy(f64.view(np.uint64).reshape(-1, L)).cuda())
+    return (_u32.from_numpy(bench_stream(1 << 23).reshape(-1, L)).cuda(),
+            _u64.from_numpy(bench_stream64(1 << 24).reshape(-1, L)).cuda())
 
 
 def replay_inputs(words, e1, e2):
