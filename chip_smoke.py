@@ -2,7 +2,8 @@
 """Drive trico_tpu_torch on one NVIDIA GPU: the chunked FP codec (f32 and
 f64, both chunk layouts, the reference layout also packed and parsed on the
 card), the BP and LZ4 integer codecs, whole v1 mesh archives, the mesh codec
-over a mesh of shards (``trico_tpu_torch.parallel``) and the CLI.
+over a mesh of shards (``trico_tpu_torch.parallel``), the CLI, the bench,
+the corpus size gate and the multi-process scaling run.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -29,8 +30,15 @@ Phases, each fatal on failure:
    ids in the decode: the ``logshift`` word's top bit set), and every call
    of the Lucy archive of phase 6 written and read at ``optimize=True`` in
    both layouts, and every call of the same mesh (f32 and f64 vertices)
-   through ``compress_mesh`` / ``decompress_mesh`` on two shards; the
-   plain versions run over blocks of rows. Besides,
+   through ``compress_mesh`` / ``decompress_mesh`` on two shards, and
+   every call of the v1 archive of each class of the corpus gate (phase 11)
+   written and read (planes of 2 to 11 full chunks with tails, f64
+   vertices, u64 triangles), and every call of the scaling run of phase 12
+   (its 14,025,025 vertices through ``compress_mesh`` and
+   ``decompress_mesh`` on 8 shards: 428 chunks per plane and shard, the
+   batch each shard takes in every configuration); the plain versions run
+   over blocks of rows.
+   Besides,
    predict and replay (both widths) at more exponents on words with NaN,
    inf, zero, subnormal and negative patterns, f32 predict also at (14,14),
    whose 128 KB of tables take a block of one warp. ``fcm_multi_xors``
@@ -126,11 +134,27 @@ Phases, each fatal on failure:
    to phase 9's on the same stream, and ``predict_xors``,
    ``pair_compact_or``, ``logshift``, ``replay``, ``predict64_xors`` and
    ``replay64`` launched; its result line is printed with the card's name;
-11. print the kernels line: each kernel's launches during phases 4-7 and
-   10 (each must be > 0 in phase 4; all but ``fcm_multi_xors`` in phases 6,
-   7 and 10; ``logshift`` in phase 5), by path (``launches_by_path``: the
-   bench's as it counted them in its own process), its largest
-   difference from the plain version, both times and the bound
+11. run the corpus size gate, ``python -m
+   trico_tpu_torch.tools.corpus_gate`` (its ``main``, in this process), on
+   the card: seven classes of mesh, every stream of the v0 and v1 archives
+   read back bit-exact, every archive's size that of ``CORPUS.json``, and
+   ``v0 <= ref`` and ``v1 <= ref`` against the reference library's size
+   (recorded in ``CORPUS.json`` unless its sources build from the
+   repository's gitignored ``reference/``);
+12. run ``python -m trico_tpu_torch.tools.mp_scaling`` as a subprocess at
+   Lucy's published vertex count (14,025,025 f32 vertices) on a mesh of 8
+   shards of the card split over 1, 2 and 4 gloo processes: the same bytes
+   in every configuration, decoded bit-exact (in the tool's own process,
+   its launches counted with the ranks'); prints each configuration's
+   efficiency against one process and ``gather_frac`` beside the card (one
+   card shared in time: overhead, not scaling);
+13. print the kernels line: each kernel's launches during phases 4-7 and
+   10-12 (each must be > 0 in phase 4; all but ``fcm_multi_xors`` in phases
+   6, 7, 10 and 11; ``logshift`` in phase 5; ``predict_xors``,
+   ``pair_compact_or``, ``replay`` and ``logshift`` in phase 12), by path
+   (``launches_by_path``: the bench's and the scaling run's as their
+   processes counted them), its largest difference from the plain version,
+   both times and the bound
    (``library_ms`` is null: no single PyTorch call computes any of the
    seven functions).
 
@@ -145,7 +169,7 @@ from __future__ import annotations
 import json
 import math
 import os
-import socket
+import signal
 import subprocess
 import sys
 import time
@@ -171,7 +195,11 @@ from trico_tpu_torch.parallel import (make_mesh, mesh_codec,  # noqa: E402
 # the bench's generators: bench.py's streams, triangles and Lucy-class mesh
 from trico_tpu_torch.bench import (CANARY_LEN, bench_stream,  # noqa: E402
                                    bench_stream64, canary_stream,
-                                   fullmesh_indices)
+                                   fullmesh_indices, time_ms)
+from trico_tpu_torch.tools import corpus_gate  # noqa: E402
+from trico_tpu_torch.tools.corpus import build_corpus  # noqa: E402
+from trico_tpu_torch.tools.mp_scaling import (free_port, run_ranks,  # noqa: E402
+                                              scaling_verts)
 
 N_VALUES = 1 << 23  # bench.py's f32 stream: 8M values
 N_F64 = 1 << 24  # bench.py's f64 stream: 16M doubles
@@ -243,6 +271,12 @@ CARD = "unknown card"  # name and power limit, set by main()
 REPLAY_ODD_LENS = {"replay": (8, 40, CHUNK_LEN + 8),
                    "replay64": (2, 38, 2 * 2051)}
 BENCH_TIMEOUT = 400  # seconds the bench may take (40-90 s expected)
+# the scaling run at Lucy's published vertex count (LUCY_PUBLISHED_VERTS'
+# grid, side 3745), over 1, 2 and 4 processes sharing 8 shards of the card
+MP_SCALING_VERTS = 3745 ** 2
+MP_SCALING_SHARDS = 8
+MP_SCALING_PROCS = (1, 2, 4)
+MP_SCALING_TIMEOUT = 420  # seconds the scaling run may take (60-120 expected)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: device memory rate
 INT_OPS_PER_S = 67e12  # H100 SXM: 32-bit rate outside the tensor cores
 # integer operations per element of the first argument (per output plane for
@@ -287,20 +321,6 @@ def special_words64(C: int, L: int, seed: int = 2) -> np.ndarray:
     w[mask] = pats[r.integers(0, len(pats), mask.sum())]
     w[:, : L // 8] = pats[r.integers(0, len(pats), (C, 1))]  # constant runs
     return w
-
-
-def time_ms(fn, reps: int) -> float:
-    """Milliseconds per call of fn, from CUDA events, after one warm-up."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def max_abs_err(a, b) -> int:
@@ -575,7 +595,7 @@ def hold(name: str, args, what: str, restores=None) -> int:
     return err
 
 
-def capture_main_path_inputs(x, x64, raw, raw64, tflat, lucy):
+def capture_main_path_inputs(x, x64, raw, raw64, tflat, lucy, meshes):
     """Run the main paths once at their shapes and record what each kernel
     wrapper was given: f32 encode and decode at (4,6), the same of the
     bench's second shape ((8192, 1024), its leg 3), the adaptive encode with
@@ -585,8 +605,15 @@ def capture_main_path_inputs(x, x64, raw, raw64, tflat, lucy):
     the whole fullmesh stream, and the Lucy archive written and read at
     ``optimize=True`` in both layouts, and the same mesh with f32 and f64
     vertices through ``compress_mesh`` / ``decompress_mesh`` on two shards
-    of the card (each plane's hash_info groups split in two). Returns the
-    calls by kernel and, apart, the BP legs' ``logshift`` calls."""
+    of the card (each plane's hash_info groups split in two), and the v1
+    archive of every class of the corpus gate's ``meshes`` written and read
+    (planes of 2 to 11 full chunks and a tail, f64 vertices, u64
+    triangles), and the scaling run's data through ``compress_mesh`` and
+    ``decompress_mesh`` on its mesh of MP_SCALING_SHARDS shards (each
+    shard's batch is the same chunk range however many processes hold the
+    shards, so these are the calls of every configuration's ranks and of
+    its decode check). Returns the calls by kernel and, apart, the BP legs'
+    ``logshift`` calls."""
     bp32 = _u32.from_numpy(tflat.reshape(-1, BP_CHUNK)).cuda()
     bp64 = _u64.from_numpy(wide_indices(tflat).reshape(-1, BP64_CHUNK)).cuda()
 
@@ -640,16 +667,31 @@ def capture_main_path_inputs(x, x64, raw, raw64, tflat, lucy):
             mesh_round_trip(v, tris, normals, colors, make_mesh(2),
                             "parallel capture")
 
+    def run_corpus():
+        for name, mesh in meshes.items():
+            blob = corpus_gate.our_archive(mesh, CHUNK_LEN, device="cuda")
+            bad = corpus_gate.inexact_streams(blob, mesh, device="cuda")
+            check(not bad, f"corpus capture, {name}: {bad} not read back bit-exact")
+
+    def run_scaling():
+        verts = scaling_verts(MP_SCALING_VERTS)
+        mesh = make_mesh(MP_SCALING_SHARDS)
+        blob = mesh_codec.compress_mesh(verts, chunk_len=CHUNK_LEN, mesh=mesh)
+        back = mesh_codec.decompress_mesh(blob, mesh)
+        check(same_bits(back["vertices"], verts), "scaling capture: vertices "
+              "not read back bit-exact")
+
     seen = [record_calls(run) for run in (run_fp, run_bp, run_archives,
-                                          run_parallel)]
+                                          run_parallel, run_corpus, run_scaling)]
     return ({k: sum((s[k] for s in seen), []) for k in fp_cuda.KERNELS},
             seen[1]["logshift"])
 
 
-def kernel_phase(x, x64, raw, raw64, tflat, lucy):
+def kernel_phase(x, x64, raw, raw64, tflat, lucy, meshes):
     """Phase 3: every kernel against its plain version on the card. Extra
     replay cases must also restore the words they were predicted from."""
-    seen, bp_calls = capture_main_path_inputs(x, x64, raw, raw64, tflat, lucy)
+    seen, bp_calls = capture_main_path_inputs(x, x64, raw, raw64, tflat, lucy,
+                                              meshes)
     special = _u32.from_numpy(special_words(256, CHUNK_LEN)).cuda()
     mixed = torch.cat([x[:256], special])
     special64 = _u64.from_numpy(special_words64(256, CHUNK_LEN)).cuda()
@@ -1100,12 +1142,6 @@ def mesh_round_trip(verts, tris, normals, colors, mesh, what, optimize=True,
     return blob, stats, t1 - t0, t2 - t1
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def device_seconds(trace) -> float:
     """Seconds of device time (kernels and copies) in a torch.profiler
     trace: the self time of its CUDA events."""
@@ -1223,21 +1259,11 @@ def run_workers(argvs) -> tuple[list[bytes], float]:
     the host-clock seconds for all of them, start-up included."""
     WORK.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "trico_tpu_torch.parallel.mp_worker",
-         *map(str, argv)], cwd=REPO, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT) for argv in argvs]
-    try:
-        texts = [p.communicate(timeout=300)[0].decode(errors="replace")
-                 for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    done = run_ranks([[sys.executable, "-m", "trico_tpu_torch.parallel.mp_worker",
+                       *map(str, argv)] for argv in argvs], timeout=300)
     seconds = time.perf_counter() - t0
-    for argv, p, text in zip(argvs, procs, texts):
-        check(p.returncode == 0, f"mp_worker {argv} failed:\n{text[-3000:]}")
+    for argv, (rc, text) in zip(argvs, done):
+        check(rc == 0, f"mp_worker {argv} failed:\n{text[-3000:]}")
     return [Path(f"{argv[3]}.rank{argv[0]}").read_bytes() for argv in argvs], seconds
 
 
@@ -1511,6 +1537,84 @@ def bench_phase(f32_ratio: float) -> dict:
     return e["kernel_launches"]
 
 
+def corpus_phase() -> None:
+    """Phase 11: ``python -m trico_tpu_torch.tools.corpus_gate`` in this
+    process, on the card: seven classes, every stream of both archives back
+    bit-exact, every v0 and v1 size that of CORPUS.json, and the gate
+    passed against the reference's size (recorded unless the reference
+    builds)."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    out = WORK / "corpus_gate.json"
+    t0 = time.perf_counter()
+    rc = corpus_gate.main(["--json", str(out)])
+    seconds = time.perf_counter() - t0
+    result = json.loads(out.read_text())
+    recorded = json.loads(corpus_gate.RECORDED.read_text())
+    rows = result["rows"]
+    check(result["backend"] == "cuda", f"the corpus gate ran on {result['backend']}")
+    check(sorted(rows) == sorted(recorded) and len(rows) == 7,
+          f"the corpus gate's classes {sorted(rows)}")
+    for name, row in rows.items():
+        check(row["exact"], f"corpus {name}: a round trip is not bit-exact")
+        for k in ("v0_bytes", "v1_bytes"):
+            check(row[k] == recorded[name][k], f"corpus {name}: {k} {row[k]}, "
+                  f"CORPUS.json's {recorded[name][k]}")
+        print(f"corpus {name}: raw {row['raw_bytes']} B, ref {row['ref_bytes']} B "
+              f"({row['ref_source']}), v0 {row['v0_bytes']} B ({row['v0_vs_ref']} "
+              f"of ref), v1 {row['v1_bytes']} B ({row['v1_vs_ref']}), the sizes "
+              f"of CORPUS.json; v1 written in {row['t_v1_s']} s (host clock), "
+              f"every stream bit-exact", flush=True)
+    check(rc == 0 and result["ok"], f"the corpus gate failed: {result['failures']}")
+    print(f"corpus gate passed in {seconds:.1f} s [{CARD}]", flush=True)
+
+
+def mp_scaling_phase() -> dict:
+    """Phase 12: ``python -m trico_tpu_torch.tools.mp_scaling`` as a
+    subprocess at MP_SCALING_VERTS on MP_SCALING_SHARDS shards over
+    MP_SCALING_PROCS processes: the same bytes in every configuration,
+    decoded bit-exact. Returns the kernel launches of its ranks and of its
+    decode check, summed."""
+    torch.cuda.empty_cache()  # the card's memory is the ranks'
+    procs = ",".join(map(str, MP_SCALING_PROCS))
+    t0 = time.perf_counter()
+    # a session of its own, so that a run cut by the time limit is stopped
+    # with every rank it started
+    proc = subprocess.Popen([sys.executable, "-m", "trico_tpu_torch.tools.mp_scaling",
+                             "--verts", str(MP_SCALING_VERTS), "--procs", procs,
+                             "--shards", str(MP_SCALING_SHARDS)],
+                            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=MP_SCALING_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    for log in stderr.splitlines()[-20:]:
+        print(f"  {log}")
+    check(proc.returncode == 0, f"mp_scaling exited {proc.returncode}")
+    line = json.loads(stdout.strip().splitlines()[-1])
+    rows = line["configs"]
+    check(line["backend"] == "cuda", f"mp_scaling ran on {line['backend']}")
+    check([r["n_processes"] for r in rows] == list(MP_SCALING_PROCS),
+          f"mp_scaling ran {[r['n_processes'] for r in rows]} processes")
+    check(line["byte_identical_across_configs"] and line["exact"] and line["ok"],
+          "mp_scaling: the archives differ between configurations or do not "
+          "decode bit-exact")
+    print(f"mp_scaling ({seconds:.1f} s in all): compress_mesh of {MP_SCALING_VERTS} "
+          f"f32 vertices on {MP_SCALING_SHARDS} shards of cuda:0, "
+          f"{rows[0]['archive_bytes']} B in every configuration, decoded "
+          "bit-exact; " + "; ".join(
+              f"{r['n_processes']} processes: wall {r['wall_s']:.4f} s, efficiency "
+              f"{r['efficiency_vs_1proc']:.4f}, gather_frac {r['gather_frac']:.4f}"
+              for r in rows) + f" (one card shared in time: overhead, not scaling) "
+          f"[{CARD}]", flush=True)
+    print(f"mp_scaling line: {json.dumps(line)}", flush=True)
+    return {k: sum(r["kernel_launches"][k] for r in rows)
+            + line["decode_kernel_launches"][k] for k in fp_cuda.KERNELS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1533,8 +1637,9 @@ def main() -> int:
     x = _u32.from_numpy(raw.reshape(-1, CHUNK_LEN)).cuda()
     x64 = _u64.from_numpy(raw64.reshape(-1, CHUNK_LEN)).cuda()
     lucy = lucy_mesh(LUCY_VERTS)
+    meshes = build_corpus()
     t0 = time.perf_counter()
-    kern = kernel_phase(x, x64, raw, raw64, tflat, lucy)
+    kern = kernel_phase(x, x64, raw, raw64, tflat, lucy, meshes)
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s; {peak_mib()}",
           flush=True)
 
@@ -1556,6 +1661,11 @@ def main() -> int:
 
     f32_ratio = throughput_phase(x, x64, tflat)
     by_path["bench"] = bench_phase(f32_ratio)
+    fp_cuda.reset_launches()
+    corpus_phase()
+    torch.cuda.synchronize()
+    by_path["corpus"] = dict(fp_cuda.launches)
+    by_path["mp_scaling"] = mp_scaling_phase()
 
     check(by_path["integer"]["logshift"] > 0, "logshift: no launch in the "
           "integer path")
@@ -1565,9 +1675,13 @@ def main() -> int:
         # only the custom candidate set has fcm_multi_xors: no e2 group of
         # the built-in candidates has two nonzero e1
         if name != "fcm_multi_xors":
-            for path in ("archive", "parallel", "bench"):
+            for path in ("archive", "parallel", "bench", "corpus"):
                 check(by_path[path][name] > 0,
                       f"{name}: no launch in the {path} path")
+        # the ranks' compress of f32 vertices, and the tool's decode check
+        if name in ("predict_xors", "pair_compact_or", "replay", "logshift"):
+            check(by_path["mp_scaling"][name] > 0,
+                  f"{name}: no launch in the mp_scaling path")
         replaces, also = REPLACES[name]
         row = {"name": name, "route": "cuda", "source": SOURCE,
                "replaces": replaces,

@@ -3,8 +3,9 @@ containers, writes and reads v0 and v1 archives of every stream kind, runs
 ``compress_mesh`` / ``decompress_mesh`` on a mesh of two CPU shards, runs
 its CLI and its bench (``trico_tpu_torch.bench.run``, smallest sizes) with
 both JAX and trico_tpu blocked, with and without the C++ host library, and
-no source of the port (``parallel/`` and ``bench.py`` included) imports JAX
-or anything of trico_tpu."""
+no source of the port (``parallel/``, ``bench.py`` and ``tools/`` included)
+imports JAX or anything of trico_tpu; the tools' own tests run them with
+both blocked."""
 
 import re
 import subprocess
@@ -166,6 +167,9 @@ def test_sources_name_no_jax():
     parallel = {f.name for f in files if f.parent.name == "parallel"}
     assert {"__init__.py", "mesh_codec.py", "mp_worker.py"} <= parallel
     assert REPO / "trico_tpu_torch" / "bench.py" in files
+    tools = {f.name for f in files if f.parent.name == "tools"}
+    assert {"corpus.py", "corpus_gate.py", "ref_oracle.py", "mp_scaling.py",
+            "kernel_compare.py", "replay_sweep.py"} <= tools
     for f in files:
         text = f.read_text()
         assert not any(p.search(text) for p in patterns), f

@@ -207,6 +207,23 @@ def timed(fn, reps: int, device: torch.device):
     return out, ms
 
 
+def time_ms(fn, reps: int = 20) -> float:
+    """Milliseconds per call of ``fn`` on the card, after one warm-up: the
+    ``reps`` calls run back to back between two CUDA events, with no event
+    between them as :func:`timed` records (the kernel timer of
+    ``chip_smoke.py`` and ``tools/``)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def ms_stats(ms: list[float]) -> dict:
     return {"mean": sum(ms) / len(ms), "min": min(ms), "max": max(ms),
             "reps": len(ms)}
@@ -401,15 +418,21 @@ def archive_leg(n_verts: int, device: torch.device, chunk_len: int) -> dict:
             "exact": exact, "backend": f"{device.type}-mesh-{mesh.size}dev"}
 
 
+def smi(query: str, device: torch.device) -> list[str]:
+    """The fields of ``nvidia-smi --query-gpu=<query>`` for the card
+    ``device``."""
+    rows = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+    return [s.strip() for s in rows[device.index or 0].split(",")]
+
+
 def card(device: torch.device) -> dict:
     """The card's name and power limit as nvidia-smi gives them; on the
     CPU, no card."""
     if device.type != "cuda":
         return {"name": "cpu", "power_limit": None}
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
-    name, limit = (s.strip() for s in smi[device.index or 0].split(","))
+    name, limit = smi("name,power.limit", device)
     return {"name": name, "power_limit": limit}
 
 

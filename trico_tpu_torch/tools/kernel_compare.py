@@ -51,10 +51,11 @@ import numpy as np
 import torch
 
 from .. import _u32, _u64
-from ..bench import fullmesh_indices
+from .. import bench
+from ..bench import fullmesh_indices, smi, time_ms
 from ..codec import _build, bp_torch, fp_cuda, fp_torch
-from .replay_sweep import (EXP, HBM_BYTES_PER_S, L, _smi, finish_build,
-                           load_parent, start_build, streams, time_ms)
+from .replay_sweep import (CUDA, EXP, HBM_BYTES_PER_S, L, finish_build,
+                           load_parent, start_build, streams)
 
 # the entry points called in another build: those of this tree's library
 ENTRIES = {name: _build._SIGNATURES["fp_kernels"][name]
@@ -215,7 +216,7 @@ def compare_predict(name, words, variants, parent, card) -> bool:
     want = [torch.cat(p) for p in zip(*(plain(words[i : i + 512], *EXP)
                                         for i in range(0, C, 512)))]
     bound = 3 * words.numel() * words.element_size() / HBM_BYTES_PER_S * 1e3
-    mhz = float(_smi("clocks.sm").split()[0])
+    mhz = float(smi("clocks.sm", CUDA)[0].split()[0])
 
     def this():
         return kern(words, *EXP)
@@ -293,7 +294,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_compare: CUDA is not available", file=sys.stderr)
         return 1
-    card = _smi("name,power.limit")
+    card = ", ".join(bench.card(CUDA).values())
     print(f"gpu: {card}", flush=True)
     report = _build.build_all()
     show = 0  # the four kernels' entries in the -Xptxas -v report

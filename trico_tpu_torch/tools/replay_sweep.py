@@ -33,31 +33,14 @@ from pathlib import Path
 import torch
 
 from .. import _u32, _u64
-from ..bench import bench_stream, bench_stream64
+from .. import bench
+from ..bench import bench_stream, bench_stream64, smi, time_ms
 from ..codec import _build, fp64_torch, fp_cuda, fp_torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 EXP = (4, 6)
 L = 4096
-
-
-def _smi(query: str) -> str:
-    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, reps: int = 20) -> float:
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+CUDA = torch.device("cuda", 0)
 
 
 def streams():
@@ -123,7 +106,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("replay_sweep: CUDA is not available", file=sys.stderr)
         return 1
-    card = _smi("name,power.limit")
+    card = ", ".join(bench.card(CUDA).values())
     print(f"gpu: {card}", flush=True)
     report = _build.build_all()
     show = 0  # the replay kernels' entries in the -Xptxas -v report
@@ -144,7 +127,7 @@ def main(argv=None) -> int:
             return 1
         bound = bound_ms(words)
         ms = time_ms(lambda: kern(bc, res, *EXP))
-        mhz = float(_smi("clocks.sm").split()[0])
+        mhz = float(smi("clocks.sm", CUDA)[0].split()[0])
         print(f"{name} at ({C}, {L}), {EXP}, the launch's own G and T: "
               f"{ms:.4f} ms, {ms * 1e-3 * mhz * 1e6 / L:.1f} cycles per value "
               f"at {mhz:.0f} MHz; bytes bound {bound:.4f} ms, "
