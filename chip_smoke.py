@@ -14,15 +14,21 @@ Phases, each fatal on failure:
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``trico_tpu_torch/codec/csrc`` and print the
    seconds the build took;
-3. hold each of the seven kernels against its plain PyTorch version on the
-   card, at the shapes the main paths give it: the f32 bench stream (8M
+3. hold each of the nine kernels against its plain PyTorch version on the
+   card (the sort kernels against the predictors' plain versions, the
+   route the main paths took before them), at the shapes the main paths
+   give it: the f32 bench stream (8M
    values, chunks of 4096, exponents (4,6), 16384 slots per parse row),
    the bench's second shape (its leg 3: 8M values in 8192 chunks of 1024 at
    (4,6), which gives ``replay`` 16 chunks per block), its reference-layout encode and decode through the device pack and parse
    (one ``logshift`` call at (2048, 17925), rows 4 bytes off the 16-byte
    grid), the adaptive encode with candidates ((0,6),(4,6),(8,6),(4,10)),
-   which gives ``fcm_multi_xors`` e1s=(8,), the f64 bench stream (16M
-   doubles, chunks of 4096, (4,6), 32768 slots per row), the
+   which gives ``fcm_multi_xors`` e1s=(8,), and with
+   ``F32_TPU_CANDIDATES`` (the bench's leg 2: ``predict_sort_xors`` at
+   (2048, 4096), (14,18)), the f64 bench stream (16M
+   doubles, chunks of 4096, (4,6), 32768 slots per row; at (20,20) and
+   with ``F64_TPU_CANDIDATES``: ``predict64_sort_xors`` at (4096, 4096),
+   (20,20) and (10,16)), the
    reference-layout f32 and f64 legs (device predict and replay around the
    host library's pack and parse) at (256, 4096), BP32 encode and decode of
    the whole fullmesh triangle stream of phase 5 at (5376, 16384) and BP64
@@ -56,7 +62,15 @@ Phases, each fatal on failure:
    at chunk lengths 8, 40, 4096 and 4104, one chunk and 1031, exponents
    (0,0), (0,6),
    (4,6), (4,10), (10,12) and (14,14) or (12,12) (tables past 48 KB), also
-   on views one word into a larger tensor. ``logshift`` besides at 17925,
+   on views one word into a larger tensor. ``predict_sort_xors`` besides
+   on the f32 stream's (2048, 4096) words and the mixed words at (14,18),
+   (16,16), (12,18), (16,20) and (30,30) (u64 composite keys), on the
+   special words at (14,18), and at chunk lengths 8, 40, 4104, 16384 and
+   65536 (the last two past a block's shared memory: the global scratch
+   form), one chunk and 1031, at (14,18) and (30,30), and on views one word
+   into a larger tensor; ``predict64_sort_xors`` the same on u64 words at
+   (20,20), (10,16), (16,20) and (20,22), the (4096, 4096) f64 stream
+   among them. ``logshift`` besides at 17925,
    37, 2049 and 4100 slots and 1031 rows, left and right, with an all-dead
    row, words that move past either edge, on views one word into a larger
    tensor, and at 120001 slots, where a right expansion's row no longer
@@ -71,12 +85,15 @@ Phases, each fatal on failure:
    redesigned kernels' beside the times of the kernels that they replace,
    and each kernel's bound: the larger of its bytes (inputs read once,
    outputs written once) over 3.35 TB/s and its integer operations over 67
-   TOP/s;
+   TOP/s; the sort kernels also at (2048, 4096) u32 (14,18) and (4096, 4096)
+   u64 (20,20) and (10,16) beside their plain version;
 4. drive the FP paths through ``encode_chunked`` / ``decode_chunked`` and
    ``fp_torch.encode_f32_adaptive``: the f32 bench stream fixed, ``"fast"``
    and ``optimize=True``; the f64 bench stream (bench.py:290-293) at
-   (4,6), ``"fast"`` and ``optimize=True``; the custom candidate set; the
-   f32 stream at (16,16), whose tables no kernel holds (sort predictor);
+   (4,6), at the default (20,20), ``"fast"`` and ``optimize=True``; the
+   custom candidate set; the f32 stream at (16,16), whose tables no window
+   kernel holds (each of ``optimize=True``, (16,16), f64 (20,20) and f64
+   ``optimize=True`` must launch a sort kernel);
    the f32 stream in the reference layout through the device pack and parse
    (``fp_torch.encode_f32(..., layout="ref", device_pack=True)`` and
    ``decode_f32(..., device_parse=True)``, 2048 chunks of 4096): the bytes
@@ -132,8 +149,9 @@ Phases, each fatal on failure:
    defaults as a subprocess (bench.py's eight legs at bench.py's sizes):
    it must exit 0 with every leg bit-exact, leg 1's f32 (4,6) ratio equal
    to phase 9's on the same stream, and ``predict_xors``,
-   ``pair_compact_or``, ``logshift``, ``replay``, ``predict64_xors`` and
-   ``replay64`` launched; its result line is printed with the card's name;
+   ``pair_compact_or``, ``logshift``, ``replay``, ``predict64_xors``,
+   ``replay64`` and ``predict_sort_xors`` launched, the last in its
+   headline leg (leg 2); its result line is printed with the card's name;
 11. run the corpus size gate, ``python -m
    trico_tpu_torch.tools.corpus_gate`` (its ``main``, in this process), on
    the card: seven classes of mesh, every stream of the v0 and v1 archives
@@ -148,15 +166,19 @@ Phases, each fatal on failure:
    its launches counted with the ranks'); prints each configuration's
    efficiency against one process and ``gather_frac`` beside the card (one
    card shared in time: overhead, not scaling);
-13. print the kernels line: each kernel's launches during phases 4-7 and
-   10-12 (each must be > 0 in phase 4; all but ``fcm_multi_xors`` in phases
-   6, 7, 10 and 11; ``logshift`` in phase 5; ``predict_xors``,
-   ``pair_compact_or``, ``replay`` and ``logshift`` in phase 12), by path
-   (``launches_by_path``: the bench's and the scaling run's as their
-   processes counted them), its largest difference from the plain version,
-   both times and the bound
-   (``library_ms`` is null: no single PyTorch call computes any of the
-   seven functions).
+13. print how many calls of a plain version were given tensors on the card
+   in phases 4-12, in this process (``fp_cuda.plain_on_card``, read per
+   phase): all must be 0 (the processes it starts run the same codec
+   routes, and no codec module names a plain version, as the tests check).
+   Then the kernels line: each kernel's launches during
+   phases 4-7 and 10-12 (each must be > 0 in phase 4; all but
+   ``fcm_multi_xors`` in phases 6, 7 and 11, and in 10 all but it and
+   ``predict64_sort_xors``; ``logshift`` in phase 5; ``predict_xors``,
+   ``pair_compact_or``, ``replay``, ``logshift`` and ``predict_sort_xors``
+   in phase 12), by path (``launches_by_path``: the bench's and the
+   scaling run's as their processes counted them), its largest difference
+   from the plain version, both times and the bound (``library_ms`` is
+   null: no single PyTorch call computes any of the nine functions).
 
 Every leg prints its peak device memory, every time the card's name and
 power limit. The last line is ``{"ok": true, "device": {...}}``. Without a
@@ -209,7 +231,7 @@ EXTRA_EXPS = ((0, 6), (0, 0), (4, 10), (10, 10))
 EXTRA_EXPS64 = ((0, 6), (0, 0), (4, 10), (10, 10), (10, 12))
 BIG_EXP = (14, 14)  # predict tables past 48 KB: one warp per block
 BIG_EXP64 = (12, 12)  # the same for u64 words: 64 KB
-REPAIR_EXP = (16, 16)  # tables past any block: the sort predictor
+REPAIR_EXP = (16, 16)  # tables past any block: the sort predictor kernel
 # an adaptive set with a 3-member e2 group: fcm_multi_xors gets e1s=(8,)
 CUSTOM_CANDIDATES = ((0, 6), (4, 6), (8, 6), (4, 10))
 FCM_EXTRA_E1S = (2, 6, 8)
@@ -237,8 +259,18 @@ REPLACES = {
     "pair_compact_or": (f"{PALLAS}:323", []),
     "predict64_xors": (f"{PALLAS}:493", [f"{PALLAS}:578"]),
     "replay64": (f"{PALLAS}:440", []),
+    # no Pallas kernel: the JAX package's XLA sorts for tables past VMEM
+    "predict_sort_xors": ("trico_tpu/codec/fp_jax.py:286", []),
+    "predict64_sort_xors": ("trico_tpu/codec/fp64_jax.py:61", []),
 }
-PLAIN = {name: getattr(fp_cuda, f"{name}_plain") for name in fp_cuda.KERNELS}
+# the sort kernels share the predictors' plain versions
+PLAIN_OF = {"predict_sort_xors": "predict_xors",
+            "predict64_sort_xors": "predict64_xors"}
+PLAIN = {name: getattr(fp_cuda, f"{PLAIN_OF.get(name, name)}_plain")
+         for name in fp_cuda.KERNELS}
+# module names bound to a kernel wrapper, which record_calls patches with it
+ALIASES = {"predict_sort_xors": [(fp_torch, "_predict_sort")],
+           "predict64_sort_xors": [(fp64_torch, "_predict_sort64")]}
 # the redesigned kernels' times before their redesign (H100 80GB HBM3 at
 # 700 W): the replays as one thread per chunk, logshift as a memset and a
 # scatter of 4-byte stores, pair_compact_or as a memset and an atomicOr per
@@ -266,6 +298,14 @@ ODD_LENS = (8, 40, CHUNK_LEN + 8)  # chunk lengths off the kernels' grids
 # fcm_multi_xors at K = 1, 3 and 8 exponents; the last holds 87 KB of tables,
 # so a block of one warp that opts into more shared memory
 FCM_E1S = ((8,), FCM_EXTRA_E1S, (2, 3, 4, 6, 8, 10, 12, 14))
+# the sort kernels: exponents on the main shapes (the first of each is the
+# adaptive encode's; the last needs u64 composites at L = 4096), chunk
+# lengths (the last two past one block's shared memory: the scratch form)
+# at one chunk and SORT_ROWS
+SORT_EXPS = ((14, 18), REPAIR_EXP, (12, 18), (16, 20), (30, 30))
+SORT_EXPS64 = ((20, 20), (10, 16), (16, 20), (20, 22))
+SORT_LENS = (8, 40, CHUNK_LEN + 8, 16384, 65536)
+SORT_ROWS = 1031
 CARD = "unknown card"  # name and power limit, set by main()
 # chunk lengths off the replay kernel's grids (tile, 4-value vector, warp)
 REPLAY_ODD_LENS = {"replay": (8, 40, CHUNK_LEN + 8),
@@ -283,7 +323,19 @@ INT_OPS_PER_S = 67e12  # H100 SXM: 32-bit rate outside the tensor cores
 # fcm_multi_xors): hash, table access, xor and select
 OPS_PER_ELEMENT = {"predict_xors": 16, "fcm_multi_xors": 8, "replay": 12,
                    "logshift": 6, "pair_compact_or": 6, "predict64_xors": 20,
-                   "replay64": 16}
+                   "replay64": 16, "predict_sort_xors": 16,
+                   "predict64_sort_xors": 20}
+# the paths on which each kernel must launch (phases 4-7 and 10-12; the
+# integer path is logshift's alone): fcm_multi_xors only with the custom
+# candidate set, predict64_sort_xors nowhere in the bench (its f64 leg is
+# at (4,6)), the scaling ranks compress f32 vertices
+_PATHS = ("fp", "archive", "parallel", "bench", "corpus")
+_SCALING = _PATHS + ("mp_scaling",)
+EXPECTED_PATHS = {"predict_xors": _SCALING, "fcm_multi_xors": ("fp",),
+                  "replay": _SCALING, "logshift": _SCALING,
+                  "pair_compact_or": _SCALING, "predict64_xors": _PATHS,
+                  "replay64": _PATHS, "predict_sort_xors": _SCALING,
+                  "predict64_sort_xors": ("fp", "archive", "parallel", "corpus")}
 
 
 class SmokeFailure(RuntimeError):
@@ -506,6 +558,19 @@ def pair_shape_cases(words: torch.Tensor):
     return cases
 
 
+def sort_shape_cases(words: torch.Tensor, exps):
+    """Sort predictor cases cut from (SORT_ROWS, 65536) ``words``: every
+    length of SORT_LENS at one chunk and at SORT_ROWS, at the first and the
+    last exponents of ``exps``, and a view one word into a larger tensor."""
+    cases = []
+    for L in SORT_LENS:
+        for C in (1, words.shape[0]):
+            w = words[:C, :L].contiguous()
+            cases += [((w, *e), None) for e in (exps[0], exps[-1])]
+        cases.append(((offset_view(words[:, :L].contiguous()), *exps[0]), None))
+    return cases
+
+
 def fcm_shape_cases(words: torch.Tensor):
     """fcm_multi_xors cases cut from (1031, 4104) ``words``: every set of
     FCM_E1S at every length of ODD_LENS, one chunk and 1031, and views one
@@ -526,6 +591,8 @@ def record_calls(run, largest=False):
     kernel."""
     seen = {k: [] for k in fp_cuda.KERNELS}
     real = {k: getattr(fp_cuda, k) for k in fp_cuda.KERNELS}
+    aliases = [(k, mod, attr) for k in fp_cuda.KERNELS
+               for mod, attr in ALIASES.get(k, ())]
 
     def recorder(name):
         def call(*args):
@@ -539,10 +606,14 @@ def record_calls(run, largest=False):
     try:
         for k in fp_cuda.KERNELS:
             setattr(fp_cuda, k, recorder(k))
+        for k, mod, attr in aliases:
+            setattr(mod, attr, getattr(fp_cuda, k))
         run()
     finally:
         for k in fp_cuda.KERNELS:
             setattr(fp_cuda, k, real[k])
+        for k, mod, attr in aliases:
+            setattr(mod, attr, real[k])
     return seen
 
 
@@ -599,8 +670,10 @@ def capture_main_path_inputs(x, x64, raw, raw64, tflat, lucy, meshes):
     """Run the main paths once at their shapes and record what each kernel
     wrapper was given: f32 encode and decode at (4,6), the same of the
     bench's second shape ((8192, 1024), its leg 3), the adaptive encode with
-    the custom candidate set, the f32 reference layout through the
-    device pack and parse, f64 encode and decode at (4,6), the
+    the custom candidate set and with F32_TPU_CANDIDATES (the bench's leg
+    2, whose (14,18) takes the sort kernel), the f32 reference layout through the
+    device pack and parse, f64 encode and decode at (4,6), f64 encode at
+    (20,20) and with F64_TPU_CANDIDATES (the sort kernel), the
     reference-layout f32 and f64 legs, BP32 and BP64 encode and decode of
     the whole fullmesh stream, and the Lucy archive written and read at
     ``optimize=True`` in both layouts, and the same mesh with f32 and f64
@@ -630,6 +703,8 @@ def capture_main_path_inputs(x, x64, raw, raw64, tflat, lucy, meshes):
               "bench's second shape")
         del xc, back
         fp_torch.encode_f32_chunks_v2_adaptive(x, CUSTOM_CANDIDATES)
+        # the bench's leg 2: (14,18) takes the sort kernel
+        fp_torch.encode_f32_chunks_v2_adaptive(x, fp_torch.F32_TPU_CANDIDATES)
         payloads, _ = fp_torch.encode_f32_chunks(x, *EXP)
         back = fp_torch.decode_f32_chunks(payloads, x.shape[1], *EXP)
         check(torch.equal(back, x), "f32 reference-layout device pack and "
@@ -638,6 +713,9 @@ def capture_main_path_inputs(x, x64, raw, raw64, tflat, lucy, meshes):
         back = fp64_torch.decode_f64_chunks_v2(payloads, x64.shape[1], *EXP)
         check(torch.equal(back, x64), "f64 encode/decode round trip at the "
               "bench shape")
+        # the f64 default (20,20), then the adaptive set's (10,16), (20,20)
+        fp64_torch.encode_f64_chunks_v2(x64, *SORT_EXPS64[0])
+        fp64_torch.encode_f64_chunks_v2_adaptive(x64, fp64_torch.F64_TPU_CANDIDATES)
         for vals, mod in ((raw, fp_torch), (raw64, fp64_torch)):
             vals = vals[: REF_CHUNKS * CHUNK_LEN]
             enc = mod.encode_f32 if mod is fp_torch else mod.encode_f64
@@ -719,6 +797,17 @@ def kernel_phase(x, x64, raw, raw64, tflat, lucy, meshes):
         extra["replay64"].append(((bc, res, *e), mixed64))
     extra["replay"] += replay_shape_cases("replay", mixed)
     extra["replay64"] += replay_shape_cases("replay64", mixed64)
+    long32 = _u32.from_numpy(special_words(SORT_ROWS, SORT_LENS[-1], seed=7)).cuda()
+    extra["predict_sort_xors"] = (
+        [((w, *e), None) for w in (x, mixed) for e in SORT_EXPS]
+        + [((special, *SORT_EXPS[0]), None)] + sort_shape_cases(long32, SORT_EXPS))
+    del long32
+    long64 = _u64.from_numpy(special_words64(SORT_ROWS, SORT_LENS[-1], seed=8)).cuda()
+    extra["predict64_sort_xors"] = (
+        [((w, *e), None) for w in (x64, mixed64) for e in SORT_EXPS64]
+        + [((special64, *SORT_EXPS64[0]), None)]
+        + sort_shape_cases(long64, SORT_EXPS64))
+    del long64
     results = {}
     for name in fp_cuda.KERNELS:
         check(len(seen[name]) > 0, f"{name}: the main path never called it")
@@ -742,6 +831,24 @@ def kernel_phase(x, x64, raw, raw64, tflat, lucy, meshes):
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": None}
+        extra[name] = cases = None  # the card's memory for the next kernel
+    # the sort kernels at every main-path shape and exponent pair: the plain
+    # version is the route the main paths took before these kernels
+    for name, words, exps in (("predict_sort_xors", x, SORT_EXPS[0]),
+                              ("predict64_sort_xors", x64, SORT_EXPS64[0]),
+                              ("predict64_sort_xors", x64, SORT_EXPS64[1])):
+        kern = getattr(fp_cuda, name)
+        out = kern(words, *exps)
+        bound_ms, _ = bound_of(name, (words, *exps), out)
+        ms = time_ms(lambda: kern(words, *exps), 20)
+        plain_ms = time_ms(lambda: PLAIN[name](words, *exps), 3)
+        results[name].setdefault("timed", []).append(
+            {"shape": list(words.shape), "exponents": list(exps), "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms})
+        print(f"kernel {name} at {tuple(words.shape)} {exps}: kernel "
+              f"{ms:.4f} ms, plain (the route before it) {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}% of it "
+              f"reached) [{CARD}]", flush=True)
     # BP32 and BP64 of the whole stream: encode bytes (pb 8), decode slot ids
     # (pb 16), bytes (pb 8); each call was among the cases held above
     shapes = [tuple(args[0].shape) for args in bp_calls]
@@ -782,8 +889,10 @@ def container_chunks(blob) -> list:
     return out
 
 
-def round_trip(raw, what: str, *exps, optimize=False, v1_check=False) -> bytes:
-    """encode_chunked then decode_chunked on the card, bit-exact."""
+def round_trip(raw, what: str, *exps, optimize=False, v1_check=False,
+               kernel=None) -> bytes:
+    """encode_chunked then decode_chunked on the card, bit-exact; with
+    ``kernel``, the encode must have launched it."""
     before = dict(fp_cuda.launches)
     t0 = time.perf_counter()
     blob = chunked.encode_chunked(raw, CHUNK_LEN, *exps, optimize=optimize)
@@ -798,6 +907,8 @@ def round_trip(raw, what: str, *exps, optimize=False, v1_check=False) -> bytes:
     check(bits == 8 * raw.itemsize and back.dtype == raw.dtype
           and back.shape == raw.shape, f"{what}: decode_chunked shape/dtype")
     check(np.array_equal(back, raw), f"{what}: round trip")
+    check(kernel is None or mid[kernel] > before[kernel],
+          f"{what}: the encode launched no {kernel}")
     chunks = container_chunks(blob)
     if v1_check:
         relayout = (fp_torch.relayout_f32_v2_to_v1 if raw.itemsize == 4
@@ -910,14 +1021,18 @@ def main_path_phase(raw, raw64):
     """Phase 4: the FP entry points on the card, bit-exact."""
     round_trip(raw, "f32 (4,6)", v1_check=True)
     round_trip(raw, "f32 fast", optimize="fast")
-    round_trip(raw, "f32 optimize=True", optimize=True, v1_check=True)
+    round_trip(raw, "f32 optimize=True", optimize=True, v1_check=True,
+               kernel="predict_sort_xors")
     custom_candidates_leg(raw)
     round_trip(raw, f"f32 {REPAIR_EXP} (sort predictor)", *REPAIR_EXP,
-               v1_check=True)
+               v1_check=True, kernel="predict_sort_xors")
     ref_device_leg(raw)
     round_trip(raw64, "f64 (4,6)", *EXP, v1_check=True)
+    round_trip(raw64, "f64 (20,20), the default", v1_check=True,
+               kernel="predict64_sort_xors")
     round_trip(raw64, "f64 fast", optimize="fast")
-    round_trip(raw64, "f64 optimize=True", optimize=True)
+    round_trip(raw64, "f64 optimize=True", optimize=True,
+               kernel="predict64_sort_xors")
     verts, _ = read_stl(REPO / "tests" / "data" / "StanfordBunny.stl")
     for axis in range(3):
         plane = np.ascontiguousarray(verts[:, axis])
@@ -1505,11 +1620,11 @@ def throughput_phase(x, x64, tflat) -> float:
     return ratio
 
 
-def bench_phase(f32_ratio: float) -> dict:
+def bench_phase(f32_ratio: float) -> tuple[dict, dict]:
     """Phase 10: ``python -m trico_tpu_torch.bench`` at its defaults, alone
     in a process: every leg exact, leg 1's ratio that of phase 9 on the
     same stream. Returns the bench's launches by kernel (counted from 0 in
-    its process)."""
+    its process) and the launches of its headline leg (legs 1-2)."""
     torch.cuda.empty_cache()  # the card's memory is the bench's
     env = {k: v for k, v in os.environ.items() if not k.startswith("TRICO_BENCH_")}
     t0 = time.perf_counter()
@@ -1534,7 +1649,7 @@ def bench_phase(f32_ratio: float) -> dict:
     check(e["backend"] == "cuda", f"the bench ran on {e['backend']}")
     print(f"bench ({seconds:.1f} s in all) [{CARD}]: {json.dumps(line)}",
           flush=True)
-    return e["kernel_launches"]
+    return e["kernel_launches"], e["legs"]["headline"]["kernel_launches"]
 
 
 def corpus_phase() -> None:
@@ -1649,39 +1764,43 @@ def main() -> int:
              "integer": lambda: integer_phase(tflat),
              "archive": lambda: archive_phase(lucy, bunny_verts, bunny_tris),
              "parallel": lambda: parallel_phase(lucy)}
+    # calls of a plain version with tensors on the card, by phase (phase 3
+    # holds the kernels against them; no other phase may make one)
+    plain = {}
     by_path, returned = {}, {}
     for path, run in paths.items():
         fp_cuda.reset_launches()
         returned[path] = run()
         torch.cuda.synchronize()
         by_path[path] = dict(fp_cuda.launches)
+        plain[path] = fp_cuda.plain_on_card
     # the parallel path's largest calls, held once its count is read
     hold_leg_calls(returned["parallel"], kern)
+    fp_cuda.reset_launches()
     cli_phase(bunny_verts, bunny_tris)
 
     f32_ratio = throughput_phase(x, x64, tflat)
-    by_path["bench"] = bench_phase(f32_ratio)
+    plain["throughput"] = fp_cuda.plain_on_card
+    by_path["bench"], headline = bench_phase(f32_ratio)
     fp_cuda.reset_launches()
     corpus_phase()
     torch.cuda.synchronize()
     by_path["corpus"] = dict(fp_cuda.launches)
+    plain["corpus"] = fp_cuda.plain_on_card
     by_path["mp_scaling"] = mp_scaling_phase()
+    print(f"plain versions given tensors on the card in phases 4-12: {plain}",
+          flush=True)
+    check(not any(plain.values()), "a plain version ran on the card outside "
+          "phase 3")
 
     check(by_path["integer"]["logshift"] > 0, "logshift: no launch in the "
           "integer path")
+    check(headline["predict_sort_xors"] > 0, "predict_sort_xors: no launch in "
+          "the bench's headline leg (leg 2, the adaptive encode)")
     rows = []
     for name in fp_cuda.KERNELS:
-        check(by_path["fp"][name] > 0, f"{name}: no launch in the FP path")
-        # only the custom candidate set has fcm_multi_xors: no e2 group of
-        # the built-in candidates has two nonzero e1
-        if name != "fcm_multi_xors":
-            for path in ("archive", "parallel", "bench", "corpus"):
-                check(by_path[path][name] > 0,
-                      f"{name}: no launch in the {path} path")
-        # the ranks' compress of f32 vertices, and the tool's decode check
-        if name in ("predict_xors", "pair_compact_or", "replay", "logshift"):
-            check(by_path["mp_scaling"][name] > 0,
-                  f"{name}: no launch in the mp_scaling path")
+        for path in EXPECTED_PATHS[name]:
+            check(by_path[path][name] > 0, f"{name}: no launch in the {path} path")
         replaces, also = REPLACES[name]
         row = {"name": name, "route": "cuda", "source": SOURCE,
                "replaces": replaces,

@@ -155,7 +155,9 @@ EXTRA_KEYS = {
     "kernel_launches": lambda v: v == dict.fromkeys(fp_cuda.KERNELS, 0),
     "legs": lambda v: list(v) == ["headline", "canary", "scale", "fullmesh",
                                   "f64", "bunny", "fullmesh_archive"]
-    and all(s["seconds"] > 0 and s["peak_mib"] is None for s in v.values()),
+    and all(s["seconds"] > 0 and s["peak_mib"] is None
+            and s["kernel_launches"] == dict.fromkeys(fp_cuda.KERNELS, 0)
+            for s in v.values()),
 }
 
 

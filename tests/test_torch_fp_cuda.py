@@ -294,7 +294,9 @@ def test_wrappers_reject_devices_other_than_cpu_and_cuda(name):
             "logshift": (m, 8, "left"),
             "pair_compact_or": (m, m, 6),
             "predict64_xors": (m64, 4, 6),
-            "replay64": (bc, m64, 4, 6)}[name]
+            "replay64": (bc, m64, 4, 6),
+            "predict_sort_xors": (m, 14, 18),
+            "predict64_sort_xors": (m64, 20, 20)}[name]
     with pytest.raises(ValueError):
         getattr(fp_cuda, name)(*args)
 

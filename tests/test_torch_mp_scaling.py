@@ -93,7 +93,7 @@ def test_report_has_every_field(report):
         assert r["kernel_launches"] == dict.fromkeys(r["kernel_launches"], 0)  # CPU
     assert rows[0]["efficiency_vs_1proc"] == 1.0
     launches = result["decode_kernel_launches"]
-    assert launches == dict.fromkeys(launches, 0) and len(launches) == 7  # CPU
+    assert launches == dict.fromkeys(launches, 0) and len(launches) == 9  # CPU
 
 
 def test_bytes_identical_across_configurations(report):

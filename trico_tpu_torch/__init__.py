@@ -19,9 +19,10 @@ path of a v1 mesh archive, on one device or over several:
 * :mod:`trico_tpu_torch.codec.lz4_torch` — the LZ4 match search
   (``lz4_jax``);
 * :mod:`trico_tpu_torch.codec.pack_funnel` — f32 residual region packing;
-* :mod:`trico_tpu_torch.codec.fp_cuda` — the seven CUDA kernels (source in
-  ``codec/csrc/``) that replace the nine Pallas kernels, each beside its
-  plain PyTorch version;
+* :mod:`trico_tpu_torch.codec.fp_cuda` — the nine CUDA kernels (source in
+  ``codec/csrc/``) that replace the nine Pallas kernels and the sort
+  predictor that ``fp_jax`` runs through XLA for big tables, each beside
+  its plain PyTorch version;
 * :mod:`trico_tpu_torch.native` — the C++ host library (tails, big-table
   chunks, v0 archives, reference-layout pack and parse, LZ4 emit), with the
   NumPy oracles ``codec.fp_ref``, ``bp_ref``, ``lz4_ref`` and

@@ -34,7 +34,7 @@ per-rep milliseconds under ``"ms"`` (mean, min, max). Legs 7-8 are host
 clock, ending in a synchronize. ``extra`` also holds ``backend``, the
 card's ``device`` (name and power limit from ``nvidia-smi``), the
 ``kernel_launches`` of the run by kernel and, under ``legs``, each leg's
-seconds and peak device memory.
+seconds, peak device memory and kernel launches.
 
 Data: legs 1, 3, 6, 7, 8 and leg 5's triangles come from NumPy (seeds as
 in bench.py; leg 3 from a NumPy generator with seed 7), so their bytes
@@ -438,7 +438,7 @@ def card(device: torch.device) -> dict:
 
 class _Legs:
     """Runs each leg with the device's peak memory counter reset, and keeps
-    its seconds and peak."""
+    its seconds, peak and kernel launches."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -448,13 +448,16 @@ class _Legs:
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
+        before = dict(fp_cuda.launches)
         t0 = time.perf_counter()
         out = fn(*args)
         _sync(self.device)
         peak = (torch.cuda.max_memory_allocated(self.device) / 2**20
                 if cuda else None)
         self.record[name] = {"seconds": round(time.perf_counter() - t0, 3),
-                             "peak_mib": None if peak is None else round(peak, 1)}
+                             "peak_mib": None if peak is None else round(peak, 1),
+                             "kernel_launches": {k: fp_cuda.launches[k] - before[k]
+                                                 for k in fp_cuda.KERNELS}}
         print(f"bench: {name} {self.record[name]['seconds']} s, peak "
               f"{self.record[name]['peak_mib']} MiB", file=sys.stderr, flush=True)
         return out

@@ -40,8 +40,13 @@ _SIGNATURES = {
         "tt_replay64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "tt_logshift": [_P, _P, _LL, _I, _I, _I, _I, _P],
         "tt_pair_compact_or": [_P, _P, _P, _LL, _I, _I, _P],
+        "tt_predict_sort_scratch": [_I, _I, _I, _I, _I],
+        "tt_predict_sort_xors": [_P, _P, _P, _I, _I, _I, _I, _P, _LL, _P],
+        "tt_predict64_sort_xors": [_P, _P, _P, _I, _I, _I, _I, _P, _LL, _P],
     },
 }
+# entry points that return something other than a CUDA error code (int)
+_RESTYPES = {"tt_predict_sort_scratch": _LL}
 
 
 def build_dir() -> Path:
@@ -110,6 +115,6 @@ def lib(name: str = "fp_kernels") -> ctypes.CDLL:
             for fn, argtypes in _SIGNATURES[name].items():
                 f = getattr(so, fn)
                 f.argtypes = argtypes
-                f.restype = ctypes.c_int
+                f.restype = _RESTYPES.get(fn, ctypes.c_int)
             _LIBS[name] = so
         return _LIBS[name]

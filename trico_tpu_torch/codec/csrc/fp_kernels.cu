@@ -1123,6 +1123,315 @@ int launch_replay(const void* bcodes, const void* xors, void* out, int C,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// sort_predict_kernel<uint32_t, K, S> (tt_predict_sort_xors) and
+// sort_predict_kernel<uint64_t, K, S> (tt_predict64_sort_xors): the
+// predictor of predict_kernel for tables that no block holds, (14,18) of the
+// f32 adaptive set and the f64 (20,20) default among them. No Pallas kernel
+// has this route: the JAX package computes the same words with two XLA sorts
+// (fp_jax._predict_sort, fp_jax.py:286; fp64_jax._predict_sort64,
+// fp64_jax.py:61), as the plain versions do with torch.sort.
+//
+// A table read at position i is "the payload of the latest j < i with the
+// same key, else 0" (see predict_kernel), so no table is needed: sort the
+// composites key << pb | i of a chunk, and each sorted entry whose
+// predecessor has its key takes the predecessor's position as its j. One
+// block per chunk. The composites of both tables (FCM keys, then DFCM keys,
+// N each: L rounded up to a power of two, at least kSortTile; the pad, all
+// ones, sorts last) go through one bitonic network; each position's j lands
+// in `prev`, and a last coalesced pass reads the payloads (the value for
+// FCM, the stride for DFCM) from the row and writes both xors in position
+// order. Composites are u32 where the larger exponent plus pb is at most 32
+// (fp_jax.py:261's rule, with pb at least 8), u64 otherwise.
+//
+// Bound on the H100: device-memory bytes, as predict_kernel (0.030 ms for
+// (2048, 4096) u32 words, 0.120 ms for (4096, 4096) u64 words). The network
+// has pb (pb + 1) / 2 compare-exchange stages over 2N composites, 78 at
+// L = 4096, so its instructions, not the bytes, set the time. The design
+// keeps them few and out of shared memory: a warp holds a tile of kSortTile
+// composites in registers, kSortE a lane in the order q * 32 + lane, so
+// strides below 32 are shuffles, strides 32..128 compare two registers of
+// one lane, and only strides of kSortTile and more go through the buffer
+// (10 of the 78 stages at L = 4096), each pair by one thread. Each level
+// starts by comparing every element with its mirror, so every stage sorts
+// upwards: an element's role in a stage is fixed at compile time for a
+// register stage and by its lane for a shuffle. The row, the
+// composites and `prev` are staged in shared memory where they fit one
+// block (kStaged; up to L = 8192 for u32 words with u32 composites);
+// otherwise the composites and `prev` live in a global scratch buffer that
+// the wrapper allocates, the row is read where it lies, and at most
+// kSortGrid blocks walk the chunks: slower, but the same network.
+// ---------------------------------------------------------------------------
+constexpr int kSortE = 8;               // composites a lane holds
+constexpr int kSortTile = 32 * kSortE;  // composites a warp tile holds
+constexpr int kSortThreads = 1024;
+// blocks of the scratch form: two a streaming multiprocessor fill the card,
+// and the scratch buffer grows with them
+constexpr int kSortGrid = 256;
+constexpr int kSortMaxPb = 28;   // rows of at most 2^28 values
+
+template <typename K>
+__device__ __forceinline__ K kmin(K a, K b) {
+  return a < b ? a : b;
+}
+template <typename K>
+__device__ __forceinline__ K kmax(K a, K b) {
+  return a < b ? b : a;
+}
+
+// One stage of the network inside a warp tile: element i meets element
+// i ^ M, and the lower of the two keeps the smaller composite. M is a
+// stride j (a half-cleaner) or 2j - 1 (the first stage of merge level 2j,
+// which compares each element with its mirror, so that every stage sorts
+// upwards and no element needs a direction). Element q of a lane has index
+// 32 q + lane in its tile: the bits of M below 32 pick the partner lane (a
+// shuffle), those above the partner register.
+template <int M, typename K>
+__device__ __forceinline__ void sort_tile_stage(K (&x)[kSortE], int lane) {
+  constexpr int ML = M & 31, MQ = M >> 5;
+  constexpr int HB = M >= 128 ? 128 : M >= 64 ? 64 : M >= 32 ? 32
+                   : M >= 16 ? 16 : M >= 8 ? 8 : M >= 4 ? 4 : M >= 2 ? 2 : 1;
+  if constexpr (ML == 0) {  // registers q and q ^ MQ of one lane
+#pragma unroll
+    for (int q = 0; q < kSortE; ++q) {
+      if (q & MQ) continue;
+      const K lo = kmin(x[q], x[q ^ MQ]), hi = kmax(x[q], x[q ^ MQ]);
+      x[q] = lo;
+      x[q ^ MQ] = hi;
+    }
+  } else {
+    K y[kSortE];
+#pragma unroll
+    for (int q = 0; q < kSortE; ++q)
+      y[q] = __shfl_xor_sync(kFull, x[q ^ MQ], ML);
+    const bool lane_lower = (lane & HB) == 0;
+#pragma unroll
+    for (int q = 0; q < kSortE; ++q) {
+      const bool lower = HB < 32 ? lane_lower : ((32 * q) & HB) == 0;
+      x[q] = lower ? kmin(x[q], y[q]) : kmax(x[q], y[q]);
+    }
+  }
+}
+
+// Half-cleaners at strides J, J / 2, ..., 1.
+template <int J, typename K>
+__device__ __forceinline__ void sort_half_cleaners(K (&x)[kSortE], int lane) {
+  if constexpr (J >= 1) {
+    sort_tile_stage<J>(x, lane);
+    sort_half_cleaners<J / 2>(x, lane);
+  }
+}
+
+// Merge levels L2, 2 L2, ..., kSortTile of a tile: it ends sorted.
+template <int L2, typename K>
+__device__ __forceinline__ void sort_tile_levels(K (&x)[kSortE], int lane) {
+  if constexpr (L2 <= kSortTile) {
+    sort_tile_stage<L2 - 1>(x, lane);  // the mirror
+    sort_half_cleaners<L2 / 4>(x, lane);
+    sort_tile_levels<2 * L2>(x, lane);
+  }
+}
+
+// Every tile of the 2N composites, a warp per tile: sorted whole
+// (kPresort), or the half-cleaners of strides below kSortTile that end a
+// merge level.
+template <bool kPresort, typename K>
+__device__ __forceinline__ void sort_tile_pass(K* buf, int N) {
+  const int lane = threadIdx.x & 31;
+  const int tiles = 2 * N / kSortTile;
+  for (int w = threadIdx.x >> 5; w < tiles; w += blockDim.x >> 5) {
+    K* p = buf + (long long)w * kSortTile + lane;  // warp-uniform loop
+    K x[kSortE];
+#pragma unroll
+    for (int q = 0; q < kSortE; ++q) x[q] = p[32 * q];
+    if constexpr (kPresort)
+      sort_tile_levels<2>(x, lane);
+    else
+      sort_half_cleaners<kSortTile / 2>(x, lane);
+#pragma unroll
+    for (int q = 0; q < kSortE; ++q) p[32 * q] = x[q];
+  }
+}
+
+// One stage at stride j >= kSortTile over the buffer, both tables, one
+// thread a pair: the mirror of merge level 2j (i and i ^ (2j - 1)) or a
+// half-cleaner (i and i + j); the lower index keeps the smaller.
+template <typename K>
+__device__ __forceinline__ void sort_buffer_stage(K* buf, int N, int j,
+                                                  bool mirror) {
+  const int half = N >> 1;  // pairs of one table
+  for (int p = threadIdx.x; p < N; p += blockDim.x) {
+    const int t = p >= half;
+    const int q = p - t * half;
+    const int i = ((q & ~(j - 1)) << 1) | (q & (j - 1));
+    K* row = buf + (long long)t * N;
+    const int o = mirror ? i ^ (2 * j - 1) : i + j;
+    const K a = row[i], b = row[o];
+    if (a > b) {
+      row[i] = b;
+      row[o] = a;
+    }
+  }
+}
+
+// The stride at position j of a row (its value less the one before).
+template <typename W>
+__device__ __forceinline__ W stride_at(const W* v, int j) {
+  return v[j] - (j ? v[j - 1] : W(0));
+}
+
+template <typename W, typename K, bool kStaged>
+__global__ void __launch_bounds__(kSortThreads)
+    sort_predict_kernel(const W* __restrict__ values, W* __restrict__ xor1,
+                        W* __restrict__ xor2, int C, int L, int e1, int e2,
+                        int pb, unsigned char* __restrict__ scratch,
+                        long long scratch_stride) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int N = 1 << pb;
+  const int T = blockDim.x;
+  const uint32_t m2 = (uint32_t)((1ull << e2) - 1);
+  const int sh2 = e2 >> 1;
+  for (long long c = blockIdx.x; c < C; c += gridDim.x) {
+    const W* row = values + c * L;
+    K* buf;
+    int* prev;
+    const W* v;
+    if constexpr (kStaged) {
+      buf = reinterpret_cast<K*>(smem_raw);
+      W* sv = reinterpret_cast<W*>(smem_raw + 2ll * N * sizeof(K));
+      prev = reinterpret_cast<int*>(
+          smem_raw + 2ll * N * sizeof(K) +
+          ((long long)L * sizeof(W) + 15) / 16 * 16);
+      for (int i = threadIdx.x; i < L; i += T) sv[i] = row[i];
+      __syncthreads();
+      v = sv;
+    } else {
+      buf = reinterpret_cast<K*>(scratch + blockIdx.x * scratch_stride);
+      prev = reinterpret_cast<int*>(buf + 2ll * N);
+      v = row;
+    }
+    // composites: FCM key top_e1(v[i-1]), DFCM key t[i-1] ^ ((t[i-2] <<
+    // e2/2) & m2) with t the top e2 bits of the stride; 0 before the row
+    for (int g = threadIdx.x; g < 2 * N; g += T) {
+      const int i = g & (N - 1);
+      K comp = ~K(0);
+      if (i < L) {
+        uint32_t key = 0u;
+        if (g < N) {
+          key = i ? top_bits(v[i - 1], e1) : 0u;
+        } else if (e2 && i) {
+          const uint32_t t1 = top_bits(stride_at(v, i - 1), e2);
+          const uint32_t t2 = i >= 2 ? top_bits(stride_at(v, i - 2), e2) : 0u;
+          key = t1 ^ ((t2 << sh2) & m2);
+        }
+        comp = (K(key) << pb) | K(i);
+      }
+      buf[g] = comp;
+    }
+    __syncthreads();
+    sort_tile_pass<true>(buf, N);
+    __syncthreads();
+    for (int k = 2 * kSortTile; k <= N; k <<= 1) {
+      for (int j = k >> 1; j >= kSortTile; j >>= 1) {
+        sort_buffer_stage(buf, N, j, j == k >> 1);
+        __syncthreads();
+      }
+      sort_tile_pass<false>(buf, N);
+      __syncthreads();
+    }
+    // the real composites are the first L of each table, in (key, i) order
+    const K low = K(N - 1);
+    for (int g = threadIdx.x; g < 2 * N; g += T) {
+      const int r = g & (N - 1);
+      if (r >= L) continue;
+      const K cur = buf[g];
+      int j = -1;
+      if (r) {
+        const K before = buf[g - 1];
+        if ((before >> pb) == (cur >> pb)) j = (int)(before & low);
+      }
+      prev[(g < N ? 0 : L) + (int)(cur & low)] = j;
+    }
+    __syncthreads();
+    W* x1 = xor1 + c * L;
+    W* x2 = xor2 + c * L;
+    for (int i = threadIdx.x; i < L; i += T) {
+      const W x = v[i];
+      const W xp = i ? v[i - 1] : W(0);
+      const int j1 = prev[i], j2 = prev[L + i];
+      x1[i] = x ^ (j1 >= 0 ? v[j1] : W(0));
+      x2[i] = x ^ (xp + (j2 >= 0 ? stride_at(v, j2) : W(0)));
+    }
+    __syncthreads();  // the next chunk reuses the buffers
+  }
+}
+
+// How a sort_predict launch runs (C, L, exponents and word width given).
+struct SortPlan {
+  int pb;       // log2 N
+  bool wide;    // u64 composites
+  bool staged;  // everything in shared memory
+  int threads, blocks;
+  long long smem, scratch_stride, scratch;
+};
+
+bool sort_plan(int C, int L, int e1, int e2, int word_bytes, SortPlan* p) {
+  if (C < 1 || L < 1 || e1 < 0 || e1 > 30 || e2 < 0 || e2 > 30) return false;
+  int pb = 8;  // N >= kSortTile
+  while ((1ll << pb) < L) ++pb;
+  if (pb > kSortMaxPb) return false;
+  const long long N = 1ll << pb;
+  p->pb = pb;
+  p->wide = (e1 > e2 ? e1 : e2) + pb > 32;
+  const long long keys = 2 * N * (p->wide ? 8 : 4);  // a multiple of 16
+  const long long prev = 2ll * L * 4;
+  const long long row = ((long long)L * word_bytes + 15) / 16 * 16;
+  p->staged = keys + row + prev <= kMaxSmem;
+  p->threads = (int)(2 * N / kSortE < kSortThreads ? 2 * N / kSortE
+                                                    : kSortThreads);
+  p->smem = p->staged ? keys + row + prev : 0;
+  p->blocks = p->staged ? C : (C < kSortGrid ? C : kSortGrid);
+  p->scratch_stride = p->staged ? 0 : keys + (prev + 15) / 16 * 16;
+  p->scratch = p->scratch_stride * p->blocks;
+  return true;
+}
+
+template <typename W, typename K>
+int launch_sort_predict_k(const SortPlan& p, const void* values, void* xor1,
+                          void* xor2, int C, int L, int e1, int e2,
+                          void* scratch, void* stream) {
+  if (p.staged) {
+    auto kernel = sort_predict_kernel<W, K, true>;
+    if (p.smem > kDefaultSmem) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    kernel<<<p.blocks, p.threads, p.smem, (cudaStream_t)stream>>>(
+        (const W*)values, (W*)xor1, (W*)xor2, C, L, e1, e2, p.pb, nullptr, 0);
+  } else {
+    sort_predict_kernel<W, K, false>
+        <<<p.blocks, p.threads, 0, (cudaStream_t)stream>>>(
+            (const W*)values, (W*)xor1, (W*)xor2, C, L, e1, e2, p.pb,
+            (unsigned char*)scratch, p.scratch_stride);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename W>
+int launch_sort_predict(const void* values, void* xor1, void* xor2, int C,
+                        int L, int e1, int e2, void* scratch,
+                        long long scratch_bytes, void* stream) {
+  SortPlan p;
+  if (!sort_plan(C, L, e1, e2, (int)sizeof(W), &p) ||
+      p.scratch > scratch_bytes || (p.scratch && !scratch))
+    return (int)cudaErrorInvalidValue;
+  return p.wide ? launch_sort_predict_k<W, uint64_t>(p, values, xor1, xor2, C,
+                                                     L, e1, e2, scratch, stream)
+                : launch_sort_predict_k<W, uint32_t>(p, values, xor1, xor2, C,
+                                                     L, e1, e2, scratch, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1195,6 +1504,36 @@ int tt_logshift(const void* word, void* out, long long C, int S, int pb,
     return launch_logshift_rows<uint16_t>(word, out, C, S, pb, nbits, right,
                                           stream);
   return launch_logshift_tiles(word, out, C, S, pb, nbits, right, stream);
+}
+
+// Bytes of device scratch that a sort_predict launch of (C, L) words of
+// `word_bytes` bytes needs (0 where everything fits shared memory), or -1
+// for arguments no launch takes. Exponents normalised.
+long long tt_predict_sort_scratch(int C, int L, int e1, int e2,
+                                  int word_bytes) {
+  SortPlan p;
+  if ((word_bytes != 4 && word_bytes != 8) ||
+      !sort_plan(C, L, e1, e2, word_bytes, &p))
+    return -1;
+  return p.scratch;
+}
+
+// values, xor1, xor2: (C, L) u32; scratch: tt_predict_sort_scratch bytes
+// (4-byte words) of device memory. Exponents normalised.
+int tt_predict_sort_xors(const void* values, void* xor1, void* xor2, int C,
+                         int L, int e1, int e2, void* scratch,
+                         long long scratch_bytes, void* stream) {
+  return launch_sort_predict<uint32_t>(values, xor1, xor2, C, L, e1, e2,
+                                       scratch, scratch_bytes, stream);
+}
+
+// values, xor1, xor2: (C, L) u64; the rest as tt_predict_sort_xors, with
+// 8-byte words.
+int tt_predict64_sort_xors(const void* values, void* xor1, void* xor2, int C,
+                           int L, int e1, int e2, void* scratch,
+                           long long scratch_bytes, void* stream) {
+  return launch_sort_predict<uint64_t>(values, xor1, xor2, C, L, e1, e2,
+                                       scratch, scratch_bytes, stream);
 }
 
 // carrier, payload, out: (C, S) u32; S <= 2^30.

@@ -9,8 +9,8 @@ group tags hoisted to the front:
 zero-padded to ``f64_max_chunk_bytes(L)``. A tag byte holds the 4-bit
 bcodes of two values, the first in the low nibble: 0..8 = FCM residual in
 that many bytes, 9..15 = DFCM residual in bcode - 8 bytes (reference
-fps.c:421-561). Encode is predict (``predict64_xors`` kernel, or the sort
-formulation for tables it cannot hold), code choice, then the pack: one
+fps.c:421-561). Encode is predict (``predict64_xors`` kernel, or the
+``predict64_sort_xors`` kernel for tables it cannot hold), code choice, then the pack: one
 ``logshift`` compaction of 8 candidate bytes per value. Decode is the parse
 (two ``logshift`` passes, as in f32), then the replay (``replay64`` kernel).
 
@@ -33,8 +33,8 @@ from .fp_cuda import _norm_exponents
 from .fp_torch import hash_info
 
 # The adaptive candidate sets of fp64_jax.py:532-536: the product default
-# and the optimize="fast" profile. (10,16) and (20,20) take the sort
-# formulation on encode and decode on host threads.
+# and the optimize="fast" profile. (10,16) and (20,20) take the sort kernel
+# on encode and decode on host threads.
 F64_TPU_CANDIDATES = ((4, 6), (10, 12), (10, 16), (20, 20))
 F64_TPU_CANDIDATES_FAST = ((4, 6),)
 
@@ -49,15 +49,17 @@ def f64_max_chunk_bytes(L: int) -> int:
 # encode
 # ---------------------------------------------------------------------------
 
-# the sort formulation of the predictor: the plain twin of the predict64_xors
-# kernel, and the route for tables that the kernel cannot hold
-_predict_sort64 = fp_cuda.predict64_xors_plain
+# the sort formulation of the predictor, for tables that the predict64_xors
+# kernel cannot hold: the predict64_sort_xors kernel (its plain version on
+# CPU tensors), as fp64_jax._predict_sort64
+_predict_sort64 = fp_cuda.predict64_sort_xors
 
 
 def _predict_xors64(values, e1: int, e2: int):
     """(xor1, xor2) at normalised (e1, e2): the ``predict64_xors`` kernel
-    where its u64 tables fit (:func:`fp_cuda.tables_fit`), the sort
-    formulation otherwise (fp64_jax.py:106-120). Both give the same words."""
+    where its u64 tables fit (:func:`fp_cuda.tables_fit`), the
+    ``predict64_sort_xors`` kernel otherwise (fp64_jax.py:106-120). Both
+    give the same words."""
     if fp_cuda.tables_fit((e1, e2), 8):
         return fp_cuda.predict64_xors(values, e1, e2)
     return _predict_sort64(values, e1, e2)

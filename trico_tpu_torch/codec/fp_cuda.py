@@ -1,28 +1,37 @@
 """The FP codec's device kernels: CUDA on the H100, plain PyTorch beside each.
 
 Counterpart of ``trico_tpu/codec/fp_pallas.py``. Seven wrappers cover its
-nine Pallas kernels:
+nine Pallas kernels, and two more the route that the JAX package leaves to
+XLA, the predictor for tables that no kernel holds:
 
-==================  ==========================================================
-wrapper             replaces (trico_tpu/codec/fp_pallas.py)
-==================  ==========================================================
-predict_xors        _predict_window_kernel :85 and _predict_kernel :59
-fcm_multi_xors      _fcm_multi_kernel :150
-replay              _replay_kernel :216
-logshift            _logshift_kernel :275
-pair_compact_or     _pair_compact_kernel :323
-predict64_xors      _predict64_window_kernel :493 and _predict64_kernel :578
-replay64            _replay64_kernel :440
-==================  ==========================================================
+===================  =========================================================
+wrapper              replaces (under trico_tpu/codec/)
+===================  =========================================================
+predict_xors         fp_pallas.py: _predict_window_kernel :85 and
+                     _predict_kernel :59
+fcm_multi_xors       fp_pallas.py: _fcm_multi_kernel :150
+replay               fp_pallas.py: _replay_kernel :216
+logshift             fp_pallas.py: _logshift_kernel :275
+pair_compact_or      fp_pallas.py: _pair_compact_kernel :323
+predict64_xors       fp_pallas.py: _predict64_window_kernel :493 and
+                     _predict64_kernel :578
+replay64             fp_pallas.py: _replay64_kernel :440
+predict_sort_xors    fp_jax.py: _predict_sort :286 (XLA sorts; no Pallas)
+predict64_sort_xors  fp64_jax.py: _predict_sort64 :61 (the same)
+===================  =========================================================
 
 The kernels are in ``csrc/fp_kernels.cu``. The f32 wrappers take int32
 tensors holding u32 words (:mod:`trico_tpu_torch._u32`), the f64 ones int64
 tensors holding u64 words (:mod:`trico_tpu_torch._u64`). For a tensor on the
 CPU a wrapper runs the plain version (``*_plain``), the same function in
 torch ops; for a CUDA tensor it launches the kernel and adds one to
-``launches[name]``, or raises. No wrapper falls back from one to the other.
-Whether a predictor's tables fit its kernel is :func:`tables_fit`, which the
-callers ask before they choose the kernel or the sort formulation.
+``launches[name]``, or raises. No wrapper falls back from one to the other,
+and the predictors' plain version is the twin of both of their kernels.
+Whether a predictor's tables fit the window kernel is :func:`tables_fit`,
+which the callers ask before they choose it or the sort kernel. A plain
+version given CUDA tensors adds one to ``plain_on_card``: the codec never
+does that, and ``chip_smoke.py`` holds the count at 0 on the paths it
+drives in its own process.
 """
 
 from __future__ import annotations
@@ -34,10 +43,13 @@ import torch
 from .. import _u32
 
 KERNELS = ("predict_xors", "fcm_multi_xors", "replay", "logshift",
-           "pair_compact_or", "predict64_xors", "replay64")
+           "pair_compact_or", "predict64_xors", "replay64",
+           "predict_sort_xors", "predict64_sort_xors")
 
 # launches[name] counts the kernel launches of each wrapper.
 launches = dict.fromkeys(KERNELS, 0)
+# calls of a plain version with CUDA tensors (a comparison with its kernel)
+plain_on_card = 0
 
 # dynamic shared memory one H100 block can opt into (bytes)
 MAX_SMEM = 232448
@@ -50,8 +62,17 @@ REPLAY_STAGE_BYTES = 960
 
 
 def reset_launches() -> None:
+    """Set every launch count and ``plain_on_card`` to 0."""
+    global plain_on_card
     for k in KERNELS:
         launches[k] = 0
+    plain_on_card = 0
+
+
+def _count_plain(t: torch.Tensor) -> None:
+    global plain_on_card
+    if t.is_cuda:
+        plain_on_card += 1
 
 
 def _norm_exponents(e1: int, e2: int) -> tuple[int, int]:
@@ -198,6 +219,7 @@ def _replay_words(x: torch.Tensor, dfcm: torch.Tensor, e1: int, e2: int,
 def predict_xors_plain(values: torch.Tensor, e1: int, e2: int):
     """(C, L) int32 words → (FCM xor, DFCM xor), by sorts (the counterpart
     of ``fp_jax._predict_sort``)."""
+    _count_plain(values)
     e1, e2 = _norm_exponents(e1, e2)
     x1, x2 = _predict_words(_u32.widen(values), e1, e2, 32)
     return _u32.narrow(x1), _u32.narrow(x2)
@@ -206,6 +228,7 @@ def predict_xors_plain(values: torch.Tensor, e1: int, e2: int):
 def predict64_xors_plain(values: torch.Tensor, e1: int, e2: int):
     """(C, L) int64 words → (FCM xor, DFCM xor), by sorts (the counterpart
     of ``fp64_jax._predict_sort64``)."""
+    _count_plain(values)
     e1, e2 = _norm_exponents(e1, e2)
     return _predict_words(values, e1, e2, 64)
 
@@ -245,12 +268,57 @@ def predict64_xors(values: torch.Tensor, e1: int, e2: int):
 
 
 # ---------------------------------------------------------------------------
+# predict_sort_xors and predict64_sort_xors
+# ---------------------------------------------------------------------------
+
+
+def _sort_launch(name: str, values: torch.Tensor, e1: int, e2: int):
+    C, L = values.shape
+    xor1, xor2 = torch.empty_like(values), torch.empty_like(values)
+    if values.numel():
+        lib = _lib()
+        need = lib.tt_predict_sort_scratch(C, L, e1, e2, values.element_size())
+        if need < 0:
+            raise ValueError(f"{name}: no launch takes rows of {L} values")
+        # composites of rows too long for shared memory (0 bytes otherwise);
+        # freed on return, it is reused only by work queued after the kernel
+        # on the same stream
+        scratch = torch.empty(need, dtype=torch.uint8, device=values.device)
+        _launch(name, getattr(lib, f"tt_{name}"), values.data_ptr(),
+                xor1.data_ptr(), xor2.data_ptr(), C, L, e1, e2,
+                scratch.data_ptr(), need, device=values.device)
+    return xor1, xor2
+
+
+def predict_sort_xors(values: torch.Tensor, e1: int, e2: int):
+    """(C, L) int32 words → (xor1, xor2): :func:`predict_xors` for tables of
+    any size, by a sort of each chunk's keys (no table is held). Its plain
+    version is :func:`predict_xors_plain`."""
+    e1, e2 = _norm_exponents(e1, e2)
+    _check(values, torch.int32, "predict_sort_xors values")
+    if _on_cpu(values):
+        return predict_xors_plain(values, e1, e2)
+    return _sort_launch("predict_sort_xors", values, e1, e2)
+
+
+def predict64_sort_xors(values: torch.Tensor, e1: int, e2: int):
+    """(C, L) int64 words → (xor1, xor2): :func:`predict_sort_xors` on u64
+    words. Its plain version is :func:`predict64_xors_plain`."""
+    e1, e2 = _norm_exponents(e1, e2)
+    _check(values, torch.int64, "predict64_sort_xors values")
+    if _on_cpu(values):
+        return predict64_xors_plain(values, e1, e2)
+    return _sort_launch("predict64_sort_xors", values, e1, e2)
+
+
+# ---------------------------------------------------------------------------
 # fcm_multi_xors
 # ---------------------------------------------------------------------------
 
 
 def fcm_multi_xors_plain(values: torch.Tensor, e1s: tuple):
     """One FCM xor per exponent in ``e1s``, one sort each."""
+    _count_plain(values)
     v = _u32.widen(values)
     vprev = _shift_right(v, 1)
     return tuple(_u32.narrow(v ^ _prev_occurrence(_top(vprev, e, 32), v))
@@ -285,12 +353,14 @@ def fcm_multi_xors(values: torch.Tensor, e1s):
 
 def replay_plain(bcodes: torch.Tensor, xors: torch.Tensor, e1: int, e2: int):
     """f32 decode replay; bcodes above 4 are DFCM (fcm_max = 4)."""
+    _count_plain(xors)
     e1, e2 = _norm_exponents(e1, e2)
     return _u32.narrow(_replay_words(_u32.widen(xors), bcodes > 4, e1, e2, 32))
 
 
 def replay64_plain(bcodes: torch.Tensor, xors: torch.Tensor, e1: int, e2: int):
     """f64 decode replay; bcodes above 8 are DFCM (fcm_max = 8)."""
+    _count_plain(xors)
     e1, e2 = _norm_exponents(e1, e2)
     return _replay_words(xors, bcodes > 8, e1, e2, 64)
 
@@ -343,6 +413,7 @@ def _nbits(S: int) -> int:
 def logshift_plain(word: torch.Tensor, pb: int, direction: str):
     """Move each live ``shift << pb | payload`` word (0 = dead) ``shift``
     lanes left or right; return the payloads, 0 where nothing landed."""
+    _count_plain(word)
     C, S = word.shape
     w = _u32.widen(word)
     shift = (w >> pb) & ((1 << _nbits(S)) - 1)
@@ -390,6 +461,7 @@ def pair_compact_or_plain(carrier: torch.Tensor, payload: torch.Tensor,
                           nbits: int):
     """Each live carrier ``disp << 1 | 1`` moves its payload to lane s - disp;
     payloads that meet are ORed (bit by bit, with a max-scatter per bit)."""
+    _count_plain(carrier)
     C, S = carrier.shape
     c = _u32.widen(carrier)
     disp = c >> 1

@@ -7,7 +7,7 @@ v2 "tpu" layout hoists the group tags to the front:
     [u8 hash_info][u32 BE count][3*L/8 tag bytes][residual bytes]
 
 zero-padded to ``f32_max_chunk_bytes(L)``. Encode is predict (``predict_xors``
-kernel, or the sort formulation for tables it cannot hold), code choice,
+kernel, or the ``predict_sort_xors`` kernel for tables it cannot hold), code choice,
 then the pack: tags, then the residual region through :mod:`.pack_funnel`.
 The adaptive encode predicts every candidate (grouped by e2, with the
 ``fcm_multi_xors`` kernel for extra FCM exponents) and keeps each chunk's
@@ -86,16 +86,17 @@ def _glen32(bc):
     return torch.where(bc >= 5, bc - 4, bc)
 
 
-# the sort formulation of the predictor: the plain twin of the predict_xors
-# kernel, and the route for tables that the kernel cannot hold
-_predict_sort = fp_cuda.predict_xors_plain
+# the sort formulation of the predictor, for tables that the predict_xors
+# kernel cannot hold: the predict_sort_xors kernel (its plain version on CPU
+# tensors), as fp_jax._predict_sort
+_predict_sort = fp_cuda.predict_sort_xors
 
 
 def _candidate_xors_one(values, e1: int, e2: int):
     """(xor1, xor2) at normalised (e1, e2): the ``predict_xors`` kernel where
-    its tables fit (:func:`fp_cuda.tables_fit`), the sort formulation
-    otherwise, as ``fp_jax`` routes past its VMEM budget (fp_jax.py:188-195).
-    Both give the same words."""
+    its tables fit (:func:`fp_cuda.tables_fit`), the ``predict_sort_xors``
+    kernel otherwise, as ``fp_jax`` routes past its VMEM budget
+    (fp_jax.py:188-195). Both give the same words."""
     if fp_cuda.tables_fit((e1, e2)):
         return fp_cuda.predict_xors(values, e1, e2)
     return _predict_sort(values, e1, e2)
