@@ -1,0 +1,17 @@
+"""Percent of the HBM roofline the float decode reaches: the bytes its
+full chunks need (payload read once, words written once; see
+benchmark/roofline.py) at the card's peak bandwidth, over the time the card
+was busy inside the fp_decode spans of the reads."""
+
+from benchmark.roofline import fp_full_chunk_bytes, hbm_bytes_per_s
+
+
+def read(run):
+    peak = hbm_bytes_per_s(run.device_kind)
+    if run.trace is None or peak is None:
+        return None
+    busy = run.trace.busy_in(["fp_decode"])
+    nbytes = sum(fp_full_chunk_bytes(r.archive) for r in run.of("read"))
+    if busy <= 0 or not nbytes:
+        return None
+    return 100 * nbytes / peak / busy

@@ -1,0 +1,8 @@
+"""Raw output bytes of every read in the window over the reads' summed
+wall time, 1 MB = 1e6 B (host clock): decode_MBps, read per layer where
+its runs spread too widely to hold a bound."""
+
+
+def read(run):
+    s = run.seconds("read")
+    return run.nbytes("read") / s / 1e6 if s > 0 else None
