@@ -55,7 +55,7 @@ from typing import Optional
 
 import numpy as np
 
-from . import chunked, native
+from . import chunked, native, profiling
 from .codec import fp_ref, lz4_ref, transpose
 
 __all__ = ["ArchiveReader", "ArchiveWriter", "StreamType"]
@@ -204,7 +204,8 @@ class ArchiveWriter:
         self._begin(st, count)
         # one contiguous (width, n) SoA block: plane i is row i (zero-copy
         # views; the native search encoder takes the block in one call)
-        soa = np.ascontiguousarray(raw.reshape(-1, width).T)
+        with profiling.span("fp_split", nbytes=raw.nbytes):
+            soa = np.ascontiguousarray(raw.reshape(-1, width).T)
         for payload in self._fp_best_planes(soa, exp):
             self._sub(payload)
 
@@ -361,7 +362,9 @@ class ArchiveWriter:
     # ----------------------------------------------------------------------
 
     def tobytes(self) -> bytes:
-        return b"".join(self._parts)
+        with profiling.span("archive_join",
+                            nbytes=sum(len(p) for p in self._parts)):
+            return b"".join(self._parts)
 
     def save(self, path):
         with open(path, "wb") as f:

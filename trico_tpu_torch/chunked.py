@@ -41,7 +41,7 @@ import struct
 import numpy as np
 import torch
 
-from . import _u32, _u64, native
+from . import _u32, _u64, native, profiling
 from .codec import (bp_ref, bp_torch, fp64_torch, fp_ref, fp_torch, lz4_ref,
                     lz4_torch, transpose)
 
@@ -422,17 +422,22 @@ def encode_bp_chunked(values: np.ndarray, chunk_len: int = DEFAULT_BP_CHUNK,
         body = _host_bp_payloads(values, chunk_len)
         return _frame(flags, chunk_len, n, [len(p) for p in body], body)
     full = values[: C * chunk_len].reshape(C, chunk_len)
-    if eb == 4:
-        mat, sizes = bp_torch.encode_bp32_chunks(_u32.from_numpy(full).to(dev))
-    else:
-        mat, sizes = bp_torch.encode_bp64_chunks(_u64.from_numpy(full).to(dev))
-    chunk_sizes, body = _rows_body(mat.cpu().numpy(), sizes.cpu().numpy())
-    tail = values[C * chunk_len :]
-    if len(tail):
-        tp = _host_bp_payloads(tail, chunk_len)[0]
-        chunk_sizes.append(len(tp))
-        body.append(tp)
-    return _frame(flags, chunk_len, n, chunk_sizes, body)
+    with profiling.span("bp_encode", nbytes=full.nbytes, sync=dev):
+        if eb == 4:
+            mat, sizes = bp_torch.encode_bp32_chunks(_u32.from_numpy(full).to(dev))
+        else:
+            mat, sizes = bp_torch.encode_bp64_chunks(_u64.from_numpy(full).to(dev))
+    with profiling.span("bp_d2h", nbytes=mat.numel() * mat.element_size()
+                        + sizes.numel() * sizes.element_size()):
+        mat, sizes = mat.cpu().numpy(), sizes.cpu().numpy()
+    with profiling.span("bp_assembly", nbytes=values.nbytes):
+        chunk_sizes, body = _rows_body(mat, sizes)
+        tail = values[C * chunk_len :]
+        if len(tail):
+            tp = _host_bp_payloads(tail, chunk_len)[0]
+            chunk_sizes.append(len(tp))
+            body.append(tp)
+        return _frame(flags, chunk_len, n, chunk_sizes, body)
 
 
 def validate_bp_chunk_headers(mat: np.ndarray, sizes: np.ndarray,
@@ -599,14 +604,19 @@ def encode_int_best(arr: np.ndarray, block_len: int | None = None, *,
     """Integer stream → the smaller of LZ4 byte planes and one BP container,
     as the stream's ``itemsize`` substream payloads (the BP form pads with
     empty BP placeholder containers). Constant byte planes are 19-byte fill
-    containers. The same choice as ``trico_tpu.chunked.encode_int_best``."""
+    containers. The same choice as ``trico_tpu.chunked.encode_int_best``.
+    Its spans: ``int_planes`` (the byte planes and the fill check), then
+    those of :func:`.codec.lz4_torch.compress_plane` and
+    :func:`encode_bp_chunked`."""
     arr = np.ascontiguousarray(arr)
+    with profiling.span("int_planes", nbytes=arr.nbytes):
+        planes = transpose.byte_planes(arr)
+        fills = [len(plane) and not np.any(plane != plane[0]) for plane in planes]
     lz4_subs = [
-        encode_fill(int(plane[0]), len(plane))
-        if len(plane) and not np.any(plane != plane[0])
+        encode_fill(int(plane[0]), len(plane)) if fill
         else encode_lz4_chunked(plane, block_len or DEFAULT_LZ4_BLOCK,
                                 device=device)
-        for plane in transpose.byte_planes(arr)]
+        for plane, fill in zip(planes, fills)]
     flat = arr.reshape(-1)
     if flat.dtype.itemsize in (4, 8):
         bp = encode_bp_chunked(flat, device=device)

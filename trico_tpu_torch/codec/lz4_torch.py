@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, profiling
 
 _KNUTH = 2654435761  # the multiplicative hash of lz4_jax.py:50
 _HASH_BITS = 13
@@ -82,14 +82,23 @@ def compress_plane(plane: np.ndarray, block: int, *, device="cuda") -> list[byte
     of block payloads. The full blocks' match search runs on ``device`` in
     one call; the native emitter writes every block in one threaded call,
     and compresses the tail block (under ``block`` bytes) with the host's
-    own matcher, as ``lz4_jax.compress_plane``. Needs the native library."""
+    own matcher, as ``lz4_jax.compress_plane``. Needs the native library.
+    Its spans: ``lz4_search`` (the copy of the blocks to the device and the
+    search), ``lz4_d2h`` (``off`` and ``rle`` to the host, 8 bytes a plane
+    byte) and ``lz4_emit``."""
     plane = np.ascontiguousarray(plane, dtype=np.uint8).reshape(-1)
     n = len(plane)
     C = n // block
     if C == 0:
         return [native.lz4_compress(plane)] if n else []
     blocks = plane[: C * block].reshape(C, block)
-    off, rle = find_matches(torch.from_numpy(blocks).to(device))
-    return native.lz4_emit_blocks(
-        blocks, off.cpu().numpy(), rle.cpu().numpy(),
-        tail=plane[C * block:] if n % block else None)
+    with profiling.span("lz4_search", nbytes=blocks.nbytes, sync=device):
+        off, rle = find_matches(torch.from_numpy(blocks).to(device))
+    with profiling.span("lz4_d2h", nbytes=(off.numel() * off.element_size()
+                                           + rle.numel() * rle.element_size())):
+        off, rle = off.cpu().numpy(), rle.cpu().numpy()
+    with profiling.span("lz4_emit", nbytes=plane.nbytes):
+        payloads = native.lz4_emit_blocks(
+            blocks, off, rle, tail=plane[C * block:] if n % block else None)
+        del off, rle  # the host copies' release is the emit's cost
+    return payloads

@@ -31,13 +31,11 @@ process, the padding of the chunk count to a multiple of the shard count.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import _u32, _u64, chunked
+from .. import _u32, _u64, chunked, profiling
 from ..archive import (_FP_STREAMS, _LZ4_STREAMS, F32_EXP, F64_EXP,
                        ArchiveReader, ArchiveWriter, StreamType)
 from ..codec import bp_torch, fp64_torch, fp_torch, transpose
@@ -130,13 +128,18 @@ def _to_host(t: torch.Tensor, dtype) -> np.ndarray:
     return t.detach().cpu().numpy().view(dtype)
 
 
-def _local_chunks(fn, rows: np.ndarray, mesh: Mesh, specs) -> list[np.ndarray]:
+def _local_chunks(fn, rows: np.ndarray, mesh: Mesh, specs,
+                  copies: tuple[str, str]) -> list[np.ndarray]:
     """Apply ``fn`` to this process's chunks of host ``rows`` (p, C, ...):
     each local shard takes its range of the chunk axis as one batch of
     ``p * c`` chunks on its device, and ``fn`` returns one tensor per
     ``specs`` entry ``(trailing shape, NumPy dtype)``, each (p * c, ...).
     Returns the host arrays (p, c_rank, ...) of this rank's chunks, in
-    order. A shard's results reach the host before the next shard starts."""
+    order. A shard's results reach the host before the next shard starts.
+    ``copies`` names the spans of the copy to the device and of the copy
+    back (``profiling.span``); while tracing is on, the device is waited
+    for before the copy back, so that span holds no kernel."""
+    h2d, d2h = copies
     p, C = rows.shape[:2]
     bounds = _shard_bounds(C, mesh)
     first = mesh.rank * len(mesh.shards)
@@ -145,11 +148,15 @@ def _local_chunks(fn, rows: np.ndarray, mesh: Mesh, specs) -> list[np.ndarray]:
         lo, hi = bounds[first + j], bounds[first + j + 1]
         if hi == lo:
             continue
-        x = _to_tensor(np.ascontiguousarray(rows[:, lo:hi]).reshape(
-            p * (hi - lo), *rows.shape[2:])).to(dev)
+        with profiling.span(h2d, nbytes=rows[:, lo:hi].nbytes):
+            x = _to_tensor(np.ascontiguousarray(rows[:, lo:hi]).reshape(
+                p * (hi - lo), *rows.shape[2:])).to(dev)
         outs = fn(x)
-        for part, out, (shape, dtype) in zip(parts, outs, specs):
-            part.append(_to_host(out, dtype).reshape(p, hi - lo, *shape))
+        profiling.settle(dev)
+        with profiling.span(d2h, nbytes=sum(o.numel() * o.element_size()
+                                            for o in outs)):
+            for part, out, (shape, dtype) in zip(parts, outs, specs):
+                part.append(_to_host(out, dtype).reshape(p, hi - lo, *shape))
         del x, outs
     return [np.concatenate(part, axis=1) if part
             else np.zeros((p, 0, *shape), dtype)
@@ -201,7 +208,8 @@ def _shardmap_encode(encode, values: np.ndarray, B: int, mesh: Mesh):
     payload rows (p, c_rank, B) and every chunk's size and offset (p, C),
     which every rank then knows."""
     payloads, sizes = _local_chunks(encode, values, mesh,
-                                    [((B,), np.uint8), ((), np.uint32)])
+                                    [((B,), np.uint8), ((), np.uint32)],
+                                    ("fp_h2d", "fp_d2h"))
     sizes = _gather_to_host(sizes, values.shape[1], mesh).astype(np.int64)
     return payloads, sizes, _exclusive_offsets(sizes)
 
@@ -242,7 +250,7 @@ def _sharded_decode(payloads: np.ndarray, L: int, e1: int, e2: int,
     else:
         dec, dtype = fp64_torch.decode_f64_chunks_v2, np.uint64
     (vals,) = _local_chunks(lambda x: (dec(x, L, e1, e2),), payloads, mesh,
-                            [((L,), dtype)])
+                            [((L,), dtype)], ("fp_read_h2d", "fp_read_d2h"))
     return _gather_to_host(vals, payloads.shape[1], mesh)
 
 
@@ -297,17 +305,8 @@ def roundtrip_step(values, chunk_len: int, mesh: Mesh, e1: int = 4,
 # ---------------------------------------------------------------------------
 
 
-class _NullTimer:
-    """No-op StageTimer stand-in, so the path has no conditionals."""
-
-    @staticmethod
-    @contextlib.contextmanager
-    def stage(name, nbytes=0, sync=None):
-        yield
-
-
 def _plane_containers(planes: np.ndarray, chunk_len: int, mesh: Mesh,
-                      optimize, prof, width_bits: int) -> list[bytes]:
+                      optimize, width_bits: int) -> list[bytes]:
     """Sharded-encode (p, N) planes → one chunked v1 FP container (tpu
     layout) per plane: full chunks on the mesh, the partial last chunk
     host-coded. Without ``optimize`` the exponents are the archive's v0
@@ -323,49 +322,49 @@ def _plane_containers(planes: np.ndarray, chunk_len: int, mesh: Mesh,
         cands = (fp64_torch.F64_TPU_CANDIDATES_FAST if optimize == "fast"
                  else fp64_torch.F64_TPU_CANDIDATES)
         flags = chunked._FLAG_TPU_LAYOUT | chunked._FLAG_F64
-    prof = prof or _NullTimer()
     p, N = planes.shape
     vals, C = _split_planes(planes, chunk_len)
     if C:
-        with prof.stage("fp_device_encode", nbytes=vals.nbytes):
+        with profiling.span("fp_device_encode", nbytes=vals.nbytes):
             payloads, sizes, _ = encode(vals, None if optimize else e1,
                                         None if optimize else e2, mesh,
                                         cands=cands if optimize else None)
-        with prof.stage("fp_gather", nbytes=vals.nbytes):
+        with profiling.span("fp_gather", nbytes=vals.nbytes):
             payloads = _gather_to_host(payloads, C, mesh)
     out = []
     for i in range(p):
-        with prof.stage("fp_assembly",
-                        nbytes=int(sizes[i].sum()) if C else 0):
+        with profiling.span("fp_assembly",
+                            nbytes=int(sizes[i].sum()) if C else 0):
             chunk_sizes, body = (chunked._rows_body(payloads[i], sizes[i])
                                  if C else ([], []))
         tail = planes[i, C * chunk_len :]
         if len(tail):
-            with prof.stage("fp_tails", nbytes=tail.nbytes):
+            with profiling.span("fp_tails", nbytes=tail.nbytes):
                 tp = (chunked._host_fp_encode_best(tail, cands) if optimize
                       else chunked._host_fp_encode(tail, e1, e2))
             chunk_sizes.append(len(tp))
             body.append(tp)
-        out.append(chunked._frame(flags, chunk_len, N, chunk_sizes, body))
+        with profiling.span("fp_frame", nbytes=sum(len(b) for b in body)):
+            out.append(chunked._frame(flags, chunk_len, N, chunk_sizes, body))
     return out
 
 
 def _f32_plane_containers(planes: np.ndarray, chunk_len: int, mesh: Mesh,
-                          optimize: bool | str, prof=None) -> list[bytes]:
+                          optimize: bool | str) -> list[bytes]:
     """(p, N) uint32 planes → one v1 f32 container per plane, the bytes of
     ``chunked.encode_chunked(plane, layout="tpu")`` for any shard count.
-    ``prof`` (a ``profiling.StageTimer``) splits the time into the shards'
-    encode, the gather, container assembly and tail coding."""
-    return _plane_containers(planes, chunk_len, mesh, optimize, prof, 32)
+    The spans split the time into the shards' encode (and its copies), the
+    gather, the rows' assembly, tail coding and the container's framing."""
+    return _plane_containers(planes, chunk_len, mesh, optimize, 32)
 
 
 def _f64_plane_containers(planes: np.ndarray, chunk_len: int, mesh: Mesh,
-                          optimize: bool | str = True, prof=None) -> list[bytes]:
+                          optimize: bool | str = True) -> list[bytes]:
     """(p, N) uint64 planes → one v1 f64 container per plane (chunk_len
     rounded down to even); adaptive chunks pick among
     ``F64_TPU_CANDIDATES``, and (20,20) winners decode on the host."""
     chunk_len = (chunk_len // 2) * 2 or 2
-    return _plane_containers(planes, chunk_len, mesh, optimize, prof, 64)
+    return _plane_containers(planes, chunk_len, mesh, optimize, 64)
 
 
 class _MeshWriter(ArchiveWriter):
@@ -373,18 +372,17 @@ class _MeshWriter(ArchiveWriter):
     coded over a mesh (:func:`_plane_containers`); the framing, the stream
     headers and the integer streams stay the writer's."""
 
-    def __init__(self, chunk_len: int, mesh: Mesh, optimize, prof):
+    def __init__(self, chunk_len: int, mesh: Mesh, optimize):
         super().__init__(chunk_len=chunk_len, layout="tpu", device=mesh.shards[0])
-        self._mesh, self._mesh_optimize, self._prof = mesh, optimize, prof
+        self._mesh, self._mesh_optimize = mesh, optimize
 
     def _fp_best_planes(self, planes, default_exp) -> list[bytes]:
         build = (_f32_plane_containers if planes.dtype == np.uint32
                  else _f64_plane_containers)
-        return build(planes, self._chunk_len, self._mesh, self._mesh_optimize,
-                     self._prof)
+        return build(planes, self._chunk_len, self._mesh, self._mesh_optimize)
 
     def _write_lz4_planes(self, st: StreamType, arr: np.ndarray, count: int):
-        with self._prof.stage("int_encode", nbytes=arr.nbytes):
+        with profiling.span("int_encode", nbytes=arr.nbytes):
             super()._write_lz4_planes(st, arr, count)
 
     def write_attributes_uint8(self, a):
@@ -417,43 +415,52 @@ def compress_mesh(vertices, triangles=None, *, triangle_normals=None,
 
     ``optimize``: True (the default) picks each chunk's exponents from the
     full candidate sets, ``"fast"`` from the small-table sets, False keeps
-    fixed exponents. ``profile``: a ``profiling.StageTimer``."""
+    fixed exponents. ``profile``: a recorder, any object with a
+    ``stage(name, nbytes=0, sync=None)`` context manager (a
+    ``profiling.StageTimer``, say); every ``profiling.span`` of the call
+    goes to it. The tally counts the call under ``compress_mesh`` with the
+    raw input bytes."""
     if mesh is None:
         mesh = make_mesh()
-    w = _MeshWriter((chunk_len // 8) * 8 or 8, mesh, optimize,
-                    profile or _NullTimer())
-    verts = np.asarray(vertices)
-    if verts.dtype == np.float64:
-        w.write_vertices_double(verts)
-    else:
-        w.write_vertices(verts)
-    if triangles is not None:
-        tris = np.asarray(triangles)
-        if tris.dtype == np.uint64 or (tris.size and tris.max() >= 2**32):
-            w.write_triangles_long(tris)
+    streams = (vertices, triangles, triangle_normals, attributes_uint16,
+               vertex_normals, vertex_colors, uv_per_triangle, uv_per_vertex,
+               attributes_uint8, attributes_uint32, attributes_uint64)
+    profiling.count("compress_mesh", nbytes=sum(
+        np.asarray(a).nbytes for a in streams if a is not None))
+    w = _MeshWriter((chunk_len // 8) * 8 or 8, mesh, optimize)
+    with profiling.recording(profile):
+        verts = np.asarray(vertices)
+        if verts.dtype == np.float64:
+            w.write_vertices_double(verts)
         else:
-            w.write_triangles(tris)
-    if triangle_normals is not None:
-        w.write_triangle_normals(triangle_normals)
-    if attributes_uint16 is not None:
-        w.write_attributes_uint16(attributes_uint16)
-    if vertex_normals is not None:
-        w.write_vertex_normals(vertex_normals)
-    if vertex_colors is not None:
-        w.write_vertex_colors(vertex_colors)
-    if uv_per_triangle is not None:
-        # the reference's count quirk: uv-per-triangle floats carry 3 uv
-        # pairs per triangle and the count is of pairs (trico.c:577-580)
-        w.write_uv_per_triangle(uv_per_triangle)
-    if uv_per_vertex is not None:
-        w.write_uv_per_vertex(uv_per_vertex)
-    if attributes_uint8 is not None:
-        w.write_attributes_uint8(attributes_uint8)
-    if attributes_uint32 is not None:
-        w.write_attributes_uint32(attributes_uint32)
-    if attributes_uint64 is not None:
-        w.write_attributes_uint64(attributes_uint64)
-    return w.tobytes()
+            w.write_vertices(verts)
+        if triangles is not None:
+            tris = np.asarray(triangles)
+            if tris.dtype == np.uint64 or (tris.size and tris.max() >= 2**32):
+                w.write_triangles_long(tris)
+            else:
+                w.write_triangles(tris)
+        if triangle_normals is not None:
+            w.write_triangle_normals(triangle_normals)
+        if attributes_uint16 is not None:
+            w.write_attributes_uint16(attributes_uint16)
+        if vertex_normals is not None:
+            w.write_vertex_normals(vertex_normals)
+        if vertex_colors is not None:
+            w.write_vertex_colors(vertex_colors)
+        if uv_per_triangle is not None:
+            # the reference's count quirk: uv-per-triangle floats carry 3 uv
+            # pairs per triangle and the count is of pairs (trico.c:577-580)
+            w.write_uv_per_triangle(uv_per_triangle)
+        if uv_per_vertex is not None:
+            w.write_uv_per_vertex(uv_per_vertex)
+        if attributes_uint8 is not None:
+            w.write_attributes_uint8(attributes_uint8)
+        if attributes_uint32 is not None:
+            w.write_attributes_uint32(attributes_uint32)
+        if attributes_uint64 is not None:
+            w.write_attributes_uint64(attributes_uint64)
+        return w.tobytes()
 
 
 _NAMES = {
@@ -475,7 +482,7 @@ _NAMES = {
 
 
 def decompress_mesh(blob, mesh: Mesh | None = None,
-                    route_stats: dict | None = None) -> dict:
+                    route_stats: dict | None = None, profile=None) -> dict:
     """Decode a v1 archive of :func:`compress_mesh` over ``mesh``.
 
     Walks the framing on the host (``ArchiveReader``), routes every FP
@@ -488,7 +495,10 @@ def decompress_mesh(blob, mesh: Mesh | None = None,
     ``vertex_colors``, ``uv_per_vertex``, ...).
 
     ``route_stats`` (optional dict) is filled with substream counts per
-    route: ``sharded_fp``, ``sharded_bp``, ``host_lz4``, ``host_other``."""
+    route: ``sharded_fp``, ``sharded_bp``, ``host_lz4``, ``host_other``.
+    ``profile``: a recorder, as :func:`compress_mesh` takes: an object with
+    a ``stage(name, nbytes=0, sync=None)`` context manager, to which every
+    ``profiling.span`` of the call goes."""
     if route_stats is None:
         route_stats = {}
     for k in ("sharded_fp", "sharded_bp", "host_lz4", "host_other"):
@@ -496,57 +506,74 @@ def decompress_mesh(blob, mesh: Mesh | None = None,
     if mesh is None:
         mesh = make_mesh()
     dev = mesh.shards[0]
-    r = ArchiveReader(blob, device=dev)
     out: dict = {}
-    while r.next_stream_type != StreamType.empty:
-        st = r.next_stream_type
-        if st in _FP_STREAMS:
-            width, bits = _FP_STREAMS[st]
-            count = r._read_u32()
-            planes = []
-            for _ in range(width):
-                payload = bytes(r._read_sub())
-                # route on the parsed container header, not on raw bytes
-                hdr = chunked.parse_container_header(payload)
-                if (hdr is not None and hdr.kind == "fp"
-                        and hdr.layout == "tpu" and hdr.bits == bits):
-                    planes.append(decode_plane_sharded(payload, mesh))
-                    route_stats["sharded_fp"] += 1
+    with profiling.recording(profile):
+        with profiling.span("read_framing"):
+            r = ArchiveReader(blob, device=dev)
+        while r.next_stream_type != StreamType.empty:
+            st = r.next_stream_type
+            if st in _FP_STREAMS:
+                width, bits = _FP_STREAMS[st]
+                count = r._read_u32()
+                planes = []
+                for _ in range(width):
+                    with profiling.span("read_framing"):
+                        payload = bytes(r._read_sub())
+                    # route on the parsed container header, not on raw bytes
+                    hdr = chunked.parse_container_header(payload)
+                    if (hdr is not None and hdr.kind == "fp"
+                            and hdr.layout == "tpu" and hdr.bits == bits):
+                        with profiling.span("fp_decode", nbytes=len(payload)):
+                            planes.append(decode_plane_sharded(payload, mesh))
+                        route_stats["sharded_fp"] += 1
+                    else:
+                        planes.append(chunked.decode_chunked(payload, device=dev)[0])
+                        route_stats["host_other"] += 1
+                for p in planes:
+                    if len(p) != count:
+                        raise ValueError("substream count mismatch")
+                ftype = np.float32 if bits == 32 else np.float64
+                if width > 1:
+                    with profiling.span("fp_interleave",
+                                        nbytes=sum(p.nbytes for p in planes)):
+                        arr = transpose.soa_to_aos(planes).view(ftype).reshape(-1, width)
                 else:
-                    planes.append(chunked.decode_chunked(payload, device=dev)[0])
-                    route_stats["host_other"] += 1
-            for p in planes:
-                if len(p) != count:
-                    raise ValueError("substream count mismatch")
-            ftype = np.float32 if bits == 32 else np.float64
-            arr = (transpose.soa_to_aos(planes).view(ftype).reshape(-1, width)
-                   if width > 1 else planes[0].view(ftype))
-        elif st in _LZ4_STREAMS:
-            nplanes, dtype, mult = _LZ4_STREAMS[st]
-            count = r._read_u32()
-            subs = [bytes(r._read_sub()) for _ in range(nplanes)]
-            hdr = chunked.parse_container_header(subs[0]) if subs else None
-            if hdr is not None and hdr.kind == "bp":
-                # a BP stream: substream 0 holds the values, the others are
-                # empty placeholders
-                arr = decode_bp_sharded(subs[0], mesh).astype(dtype, copy=False)
-                route_stats["sharded_bp"] += 1
+                    arr = planes[0].view(ftype)
+            elif st in _LZ4_STREAMS:
+                nplanes, dtype, mult = _LZ4_STREAMS[st]
+                count = r._read_u32()
+                with profiling.span("read_framing"):
+                    subs = [bytes(r._read_sub()) for _ in range(nplanes)]
+                hdr = chunked.parse_container_header(subs[0]) if subs else None
+                if hdr is not None and hdr.kind == "bp":
+                    # a BP stream: substream 0 holds the values, the others
+                    # are empty placeholders
+                    with profiling.span("bp_decode", nbytes=len(subs[0])):
+                        arr = decode_bp_sharded(subs[0], mesh).astype(dtype, copy=False)
+                    route_stats["sharded_bp"] += 1
+                else:
+                    planes = []
+                    for sub in subs:
+                        with profiling.span("lz4_decode", nbytes=len(sub)):
+                            planes.append(chunked.decode_lz4_chunked(sub))
+                    if nplanes == 1:
+                        arr = planes[0].view(dtype)
+                    else:
+                        with profiling.span("int_join",
+                                            nbytes=sum(p.nbytes for p in planes)):
+                            arr = transpose.from_byte_planes(planes, dtype)
+                    route_stats["host_lz4"] += 1
+                if len(arr) != count * mult:
+                    raise ValueError("integer substream count mismatch")
+                if mult == 3:
+                    arr = arr.reshape(-1, 3)
             else:
-                planes = [chunked.decode_lz4_chunked(s) for s in subs]
-                arr = (planes[0].view(dtype) if nplanes == 1
-                       else transpose.from_byte_planes(planes, dtype))
-                route_stats["host_lz4"] += 1
-            if len(arr) != count * mult:
-                raise ValueError("integer substream count mismatch")
-            if mult == 3:
-                arr = arr.reshape(-1, 3)
-        else:
-            st, arr = r.read_stream()
+                st, arr = r.read_stream()
+                out[_NAMES.get(st, st.name)] = arr
+                route_stats["host_other"] += 1
+                continue
+            r._advance_stream_type()
             out[_NAMES.get(st, st.name)] = arr
-            route_stats["host_other"] += 1
-            continue
-        r._advance_stream_type()
-        out[_NAMES.get(st, st.name)] = arr
     return out
 
 
@@ -557,8 +584,13 @@ def decode_plane_sharded(container: bytes, mesh: Mesh | None = None) -> np.ndarr
     The host parses and validates the framing before anything is launched;
     the full chunks are grouped by their hash_info byte and each group is
     split over the shards. Groups whose tables pass
-    ``chunked.DEVICE_TABLE_WORDS`` (f64 (20,20) winners) and the partial
-    last chunk decode on the host."""
+    ``chunked.DEVICE_TABLE_WORDS`` (f32 (14,18), f64 (20,20) winners) and
+    the partial last chunk decode on the host.
+
+    The tally counts the full chunks of each exponent pair and route as
+    ``fp_chunks.<e1>_<e2>.<host|device>`` (calls: chunks, bytes: their
+    decoded words' bytes), and the full chunks' words of any route under
+    ``fp_read_words``; the host route is the span ``fp_host_chunks``."""
     if mesh is None:
         mesh = make_mesh()
     data = bytes(container)
@@ -581,13 +613,18 @@ def decode_plane_sharded(container: bytes, mesh: Mesh | None = None) -> np.ndarr
         mat = chunked.bytes_to_rows(buf[offsets[0] : offsets[n_full]],
                                     full_sizes, B)
         rows = out[: n_full * chunk_len].reshape(n_full, chunk_len)
+        profiling.count("fp_read_words", nbytes=rows.nbytes)
         for info in np.unique(mat[:, 0]):
             idx = np.nonzero(mat[:, 0] == info)[0]
             e1, e2 = fp_torch.exponents(int(info))
+            words = len(idx) * chunk_len * out.itemsize
             if (1 << e1) + (1 << e2) > chunked.DEVICE_TABLE_WORDS:
-                rows[idx] = chunked.host_decode_full_chunks(
-                    mat, full_sizes, idx, chunk_len, bits, "tpu")
+                profiling.count(f"fp_chunks.{e1}_{e2}.host", words, len(idx))
+                with profiling.span("fp_host_chunks", nbytes=words):
+                    rows[idx] = chunked.host_decode_full_chunks(
+                        mat, full_sizes, idx, chunk_len, bits, "tpu")
             else:
+                profiling.count(f"fp_chunks.{e1}_{e2}.device", words, len(idx))
                 rows[idx] = _sharded_decode(mat[idx][None], chunk_len, e1, e2,
                                             mesh, bits)[0]
     for c in range(n_full, n_chunks):
@@ -638,7 +675,8 @@ def decode_bp_sharded(container: bytes, mesh: Mesh | None = None) -> np.ndarray:
                                     full_sizes, B)
         chunked.validate_bp_chunk_headers(mat, full_sizes, chunk_len, eb * 8)
         (vals,) = _local_chunks(lambda x: (dec(x, chunk_len),), mat[None],
-                                mesh, [((chunk_len,), dt)])
+                                mesh, [((chunk_len,), dt)],
+                                ("bp_read_h2d", "bp_read_d2h"))
         out[: n_full * chunk_len] = _gather_to_host(vals, n_full, mesh).reshape(-1)
     for c in range(n_full, n_chunks):
         out[c * chunk_len :] = chunked._bp_host_decode(

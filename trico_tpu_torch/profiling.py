@@ -1,4 +1,5 @@
-"""Observability: per-stage timers, throughput counters, torch profiler hooks.
+"""Observability: spans, per-stage timers, a tally of counts and bytes,
+and torch profiler hooks.
 
 Counterpart of ``trico_tpu/profiling.py``: every codec stage can be timed
 with :class:`StageTimer`, results aggregate into GB/s counters, and
@@ -6,9 +7,31 @@ with :class:`StageTimer`, results aggregate into GB/s counters, and
 CPU and, where there is a card, the CUDA kernels (view the files under
 ``log_dir`` with TensorBoard or a Chrome trace viewer).
 
+The port marks its own steps with :func:`span` (name, bytes, device to
+wait for). A span
+
+* forwards to the active *recorder*, if there is one: any object with a
+  ``stage(name, nbytes=0, sync=None)`` context manager, such as a
+  :class:`StageTimer`. ``compress_mesh(profile=...)`` and
+  ``decompress_mesh(profile=...)`` make their ``profile`` the active
+  recorder for the call (:func:`recording`; a ``contextvars`` variable, so
+  no ``prof`` argument runs through the codec's signatures);
+* with no recorder, while ``torch.profiler`` is recording, is a
+  ``record_function`` annotation of its name. :meth:`StageTimer.stage`
+  annotates too while the profiler is on, so each span is annotated once
+  whichever recorder is active, on the clock of the card's kernels and
+  copies;
+* always adds one call and its bytes under its name to the process-wide
+  tally (:func:`tally`): counts and bytes, no clock, so it costs next to
+  nothing with tracing off. :func:`count` adds to the tally alone.
+
+With tracing off (no recorder and no profiler) no span enters
+``record_function`` or waits for the device: ``sync`` is honoured only
+while tracing is on, as is :func:`settle`.
+
 Usage::
 
-    from trico_tpu_torch.profiling import StageTimer, annotate, trace
+    from trico_tpu_torch.profiling import StageTimer, annotate, span, trace
 
     prof = StageTimer()
     with prof.stage("predict", nbytes=x.numel() * 4, sync=x.device):
@@ -18,12 +41,17 @@ Usage::
     with trace("trace_out"):              # timeline of the card
         with annotate("encode"):
             encode_chunked(vals)
+
+    blob = compress_mesh(verts, tris, profile=prof)   # the port's spans
+    print(tally()["lz4_d2h"])                          # (calls, bytes)
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import json
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -59,20 +87,18 @@ class StageTimer:
         """Time a stage. Pass ``sync`` (the stage's device, or a tensor it
         made, or a callable returning either) to include the device's
         completion; otherwise a CUDA stage counts only the time to launch
-        its kernels."""
+        its kernels. While the profiler is recording, the stage is also a
+        ``record_function`` annotation of its name."""
         t0 = time.perf_counter()
-        ok = True
         try:
-            yield
-        except BaseException:
-            ok = False
-            raise
+            with _annotation(name):
+                yield
+                # only sync on success: on an exception the stage's outputs
+                # may not exist (a sync callable closing over unassigned
+                # names would raise NameError and mask the real error)
+                if sync is not None:
+                    _synchronize(sync)
         finally:
-            # only sync on success: on an exception the stage's outputs may
-            # not exist (a sync callable closing over unassigned names would
-            # raise NameError from this finally and mask the real error)
-            if ok and sync is not None:
-                _synchronize(sync)
             dt = time.perf_counter() - t0
             s = self.stages.setdefault(name, _Stage())
             s.calls += 1
@@ -119,3 +145,91 @@ def trace(log_dir: str):
 def annotate(name: str):
     """Named trace annotation for a code region (shows up on the timeline)."""
     return torch.profiler.record_function(name)
+
+
+# ---------------------------------------------------------------------------
+# the port's spans: one recorder path, annotations and the tally
+# ---------------------------------------------------------------------------
+
+_RECORDER: contextvars.ContextVar = contextvars.ContextVar(
+    "trico_tpu_torch_recorder", default=None)
+_TALLY: dict[str, list[int]] = {}
+_TALLY_LOCK = threading.Lock()
+
+
+def _profiler_on() -> bool:
+    return torch.autograd._profiler_enabled()
+
+
+def _annotation(name: str):
+    """``record_function(name)`` while the profiler is recording, else
+    nothing."""
+    return (torch.profiler.record_function(name) if _profiler_on()
+            else contextlib.nullcontext())
+
+
+@contextlib.contextmanager
+def recording(recorder):
+    """Make ``recorder`` (an object with ``stage(name, nbytes=0,
+    sync=None)``) the one every :func:`span` inside forwards to. None
+    leaves the active recorder as it is."""
+    if recorder is None:
+        yield
+        return
+    token = _RECORDER.set(recorder)
+    try:
+        yield
+    finally:
+        _RECORDER.reset(token)
+
+
+def tracing() -> bool:
+    """Whether spans are being timed or annotated: a recorder is active or
+    the profiler is recording."""
+    return _RECORDER.get() is not None or _profiler_on()
+
+
+def count(name: str, nbytes: int = 0, calls: int = 1) -> None:
+    """Add ``calls`` and ``nbytes`` under ``name`` to the tally."""
+    with _TALLY_LOCK:
+        entry = _TALLY.setdefault(name, [0, 0])
+        entry[0] += calls
+        entry[1] += nbytes
+
+
+def tally() -> dict[str, tuple[int, int]]:
+    """The process's tally since the last :func:`reset_tally`: (calls,
+    bytes) per name."""
+    with _TALLY_LOCK:
+        return {name: (c, b) for name, (c, b) in _TALLY.items()}
+
+
+def reset_tally() -> None:
+    with _TALLY_LOCK:
+        _TALLY.clear()
+
+
+def settle(sync) -> None:
+    """Wait for ``sync``'s device while tracing is on, so the next span
+    holds no wait for work launched before it."""
+    if tracing():
+        _synchronize(sync)
+
+
+@contextlib.contextmanager
+def span(name: str, nbytes: int = 0, sync=None):
+    """One step of the port: tallied always; timed by the active recorder
+    (``sync`` passed on), or else annotated while the profiler is on (and
+    ``sync`` waited for on success); nothing more with tracing off."""
+    count(name, nbytes)
+    recorder = _RECORDER.get()
+    if recorder is not None:
+        with recorder.stage(name, nbytes, sync):
+            yield
+    elif _profiler_on():
+        with torch.profiler.record_function(name):
+            yield
+            if sync is not None:
+                _synchronize(sync)
+    else:
+        yield
