@@ -32,7 +32,9 @@ path of a v1 mesh archive, on one device or over several:
   shards of a mesh of devices, across processes by ``torch.distributed``
   (``trico_tpu.parallel.mesh_codec``);
 * :mod:`trico_tpu_torch.io` — the STL and PLY readers and writers;
-* :mod:`trico_tpu_torch.profiling` — ``StageTimer``, ``trace``, ``annotate``.
+* :mod:`trico_tpu_torch.profiling` — ``StageTimer``, ``trace``, ``annotate``;
+* :mod:`trico_tpu_torch.staging` — the reused page-locked host buffers that
+  the integer encode's copies from the card land in.
 
 The package stands alone: it imports neither JAX nor anything of
 ``trico_tpu``, and keeps its own copy of every host part. Every entry point

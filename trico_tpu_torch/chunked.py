@@ -41,7 +41,7 @@ import struct
 import numpy as np
 import torch
 
-from . import _u32, _u64, native, profiling
+from . import _u32, _u64, native, profiling, staging
 from .codec import (bp_ref, bp_torch, fp64_torch, fp_ref, fp_torch, lz4_ref,
                     lz4_torch, transpose)
 
@@ -406,7 +406,9 @@ def encode_bp_chunked(values: np.ndarray, chunk_len: int = DEFAULT_BP_CHUNK,
     ``chunk_len`` is capped at 8192 for u64 and rounded down to a multiple
     of 32. The full chunks are encoded on ``device``, the tail
     chunk on the host; a stream with no full chunk is host-coded, as in
-    ``trico_tpu``."""
+    ``trico_tpu``. The rows and sizes come back into the page-locked slots
+    ``bp_rows`` and ``bp_sizes`` of :mod:`.staging`; ``_rows_body`` copies
+    them out before this returns."""
     dev = _resolve_device(device)
     values = np.ascontiguousarray(values)
     eb = values.dtype.itemsize
@@ -429,7 +431,8 @@ def encode_bp_chunked(values: np.ndarray, chunk_len: int = DEFAULT_BP_CHUNK,
             mat, sizes = bp_torch.encode_bp64_chunks(_u64.from_numpy(full).to(dev))
     with profiling.span("bp_d2h", nbytes=mat.numel() * mat.element_size()
                         + sizes.numel() * sizes.element_size()):
-        mat, sizes = mat.cpu().numpy(), sizes.cpu().numpy()
+        mat = staging.to_host(mat, "bp_rows")
+        sizes = staging.to_host(sizes, "bp_sizes")
     with profiling.span("bp_assembly", nbytes=values.nbytes):
         chunk_sizes, body = _rows_body(mat, sizes)
         tail = values[C * chunk_len :]

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import native, profiling
+from .. import native, profiling, staging
 
 _KNUTH = 2654435761  # the multiplicative hash of lz4_jax.py:50
 _HASH_BITS = 13
@@ -85,7 +85,9 @@ def compress_plane(plane: np.ndarray, block: int, *, device="cuda") -> list[byte
     own matcher, as ``lz4_jax.compress_plane``. Needs the native library.
     Its spans: ``lz4_search`` (the copy of the blocks to the device and the
     search), ``lz4_d2h`` (``off`` and ``rle`` to the host, 8 bytes a plane
-    byte) and ``lz4_emit``."""
+    byte, into the page-locked slots ``lz4_off`` and ``lz4_rle`` of
+    :mod:`..staging`, which the emit consumes before this returns) and
+    ``lz4_emit``."""
     plane = np.ascontiguousarray(plane, dtype=np.uint8).reshape(-1)
     n = len(plane)
     C = n // block
@@ -96,9 +98,8 @@ def compress_plane(plane: np.ndarray, block: int, *, device="cuda") -> list[byte
         off, rle = find_matches(torch.from_numpy(blocks).to(device))
     with profiling.span("lz4_d2h", nbytes=(off.numel() * off.element_size()
                                            + rle.numel() * rle.element_size())):
-        off, rle = off.cpu().numpy(), rle.cpu().numpy()
+        off = staging.to_host(off, "lz4_off")
+        rle = staging.to_host(rle, "lz4_rle")
     with profiling.span("lz4_emit", nbytes=plane.nbytes):
-        payloads = native.lz4_emit_blocks(
+        return native.lz4_emit_blocks(
             blocks, off, rle, tail=plane[C * block:] if n % block else None)
-        del off, rle  # the host copies' release is the emit's cost
-    return payloads
