@@ -3,7 +3,9 @@ arithmetic of intervals the device metrics need.
 
 Device activity is every kernel, copy and memset on the card. The
 benchmark's spans are ``record_function`` annotations, so they carry the
-same clock as the card's events. Times are seconds.
+same clock as the card's events. Each device operation is also matched,
+by the trace's correlation id, to the host call that enqueued it. Times
+are seconds.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import json
 import numpy as np
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 NAME_CHARS = 160  # a kernel's name in a breakdown: its templates run to thousands
 
 
@@ -39,6 +42,12 @@ class Trace:
         self.op_names = [e.get("name", "") for e in dev]
         self.op_s = np.array([e["ts"] for e in dev], np.float64) * 1e-6
         self.op_e = self.op_s + np.array([e.get("dur", 0) for e in dev], np.float64) * 1e-6
+        launch = {e["args"]["correlation"]: e["ts"] for e in events
+                  if e.get("ph") == "X" and e.get("cat") in LAUNCH_CATS
+                  and "correlation" in e.get("args", {})}
+        self.op_launch = np.array(
+            [launch.get(e.get("args", {}).get("correlation"), e["ts"]) for e in dev],
+            np.float64) * 1e-6
         self.busy_s, self.busy_e = union(self.op_s, self.op_e)
         self._cum = np.concatenate([[0.0], np.cumsum(self.busy_e - self.busy_s)])
         self.spans: dict[str, tuple[np.ndarray, np.ndarray]] = {}
@@ -79,6 +88,19 @@ class Trace:
     def span_seconds(self, names) -> float:
         s, e = self.span_union(names)
         return float(np.sum(e - s))
+
+    def ops_in_each(self, name: str) -> np.ndarray:
+        """The device operations of each span ``name``, in the spans' order
+        of start: those whose host call (matched by correlation id) lies
+        inside the span, or, where the trace holds no such call, that
+        start inside it. The spans of one name do not overlap."""
+        if name not in self.spans:
+            return np.zeros(0, np.int64)
+        s, e = self.spans[name]
+        order = np.argsort(s, kind="stable")
+        t = np.sort(self.op_launch)
+        return (np.searchsorted(t, e[order], side="right")
+                - np.searchsorted(t, s[order], side="left"))
 
     def top_ops(self, k: int = 10) -> list[list]:
         """The device operations that took the most time: [name, seconds]."""
@@ -123,3 +145,23 @@ class Trace:
             name = names[lab] if lab >= 0 else "(no span)"
             tot[name] = tot.get(name, 0.0) + d
         return [[n, v] for n, v in sorted(tot.items(), key=lambda x: -x[1])[:k]]
+
+
+def ops_per_request(run, kind: str) -> float | None:
+    """Device operations per request of ``kind`` (``write`` or ``read``):
+    each request's count (:meth:`Trace.ops_in_each` over its span),
+    averaged over the requests of each pool entry and then over the
+    entries. As the writes of one entry launch the same operations, that
+    is the count of a whole cycle of the pool over its length, wherever the
+    window cuts the cycle. None without device activity in the trace, or
+    where its spans do not pair one to one with the requests."""
+    if run.trace is None or not run.trace.busy_s.size:
+        return None
+    requests = [r for r in run.requests if r.kind == kind]
+    counts = run.trace.ops_in_each(kind)
+    if not requests or len(counts) != len(requests):
+        return None
+    by_entry: dict[int, list[int]] = {}
+    for r, c in zip(requests, counts.tolist()):
+        by_entry.setdefault(r.pool, []).append(c)
+    return float(np.mean([np.mean(c) for c in by_entry.values()]))

@@ -6,14 +6,17 @@ metric's reader in ``metrics/<name>.py`` (a module with ``read(run)``
 that returns the value, or None where it finds nothing to read).
 
 The traffic is a closed loop with one caller over a pool of meshes made
-from the seed: each iteration writes the next mesh of the pool and reads
-that archive back. A write hands host arrays to ``compress_mesh`` and ends
-when the archive bytes are on the host; a read hands bytes to
-``decompress_mesh`` and ends when the arrays are on the host. Set-up loads
-the program's libraries (building them on a checkout's first run), makes
-the pool, and writes and reads its first mesh once: every mesh of a pool
-has the same shapes. The window then runs until ``--seconds`` have
-passed; the request that is running then is finished and counted.
+from the seed (``meshgen``: the traffic's ``pool`` draws of each mesh of
+the configuration, draw-major): each iteration writes the next entry of
+the pool and reads that archive back. A write hands host arrays to
+``compress_mesh`` and ends when the archive bytes are on the host; a read
+hands bytes to ``decompress_mesh`` and ends when the arrays are on the
+host. Set-up loads the program's libraries (building them on a checkout's
+first run), makes the pool, and writes and reads the first draw of each
+mesh once, so that every shape of the window has been used; a
+configuration of one mesh warms ``pool[0]`` alone. The window then runs
+until ``--seconds`` have passed; the request that is running then is
+finished and counted.
 
 ``correct`` is decided after the window, against the NumPy reference of
 ``reference/``. The run's archives are held once each (an archive equal
@@ -218,16 +221,17 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     run = Run(cell, config, traffic, kind)
 
     # set-up: the libraries (their build, on a checkout's first run, is
-    # reported apart as build_s), the pool, one write and read of its
-    # first mesh
+    # reported apart as build_s), the pool, one write and read of each of
+    # its meshes (entries 0 to n-1 are each mesh's first draw)
     t_build = time.perf_counter()
     _load_libraries(device)
     run.build_s = time.perf_counter() - t_build
-    pool = [meshgen.make_streams(config, traffic["streams"], seed, k)
-            for k in range(traffic["pool"])]
+    pool = [meshgen.make_streams(config, traffic["streams"], seed, k, bench)
+            for k in range(meshgen.pool_size(config, traffic))]
     run.pool_raw_bytes = [_nbytes(p) for p in pool]
     program = program_cls(mesh, config["codec"])
-    program.read(program.write(pool[0]))
+    for k in range(len(meshgen.meshes(config))):
+        program.read(program.write(pool[k]))
     if device == "cuda":
         torch.cuda.synchronize()
 
@@ -261,7 +265,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     i = 0
     with (spans.wrapping_decoders() if trace else contextlib.nullcontext()):
         while time.perf_counter() < deadline:
-            k = i % traffic["pool"]
+            k = i % len(pool)
             i += 1
             a = time.perf_counter()
             try:

@@ -3,6 +3,7 @@
 NVIDIA card and skip without one; whether there is one is decided inside
 the fixture, never while a module is imported."""
 
+import hashlib
 import json
 import shutil
 import sys
@@ -14,7 +15,10 @@ REPO = Path(__file__).resolve().parents[2]
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
-TINY_SIDES = {"lucy": 48, "vellum": 40}
+# a configuration's grid side, or for one of several meshes each grid
+# mesh's side and the triangles kept of a mesh read from a file
+TINY_SIDES = {"lucy": 48, "vellum": 40,
+              "assets": {"bunny": 3000, "armadillo": 24, "dragon": 32, "happy_buddha": 40}}
 
 
 def pytest_configure(config):
@@ -33,8 +37,31 @@ def shrink(root: Path, sides=TINY_SIDES) -> None:
     for name, side in sides.items():
         path = root / "benchmark" / "configs" / f"{name}.json"
         config = json.loads(path.read_text())
-        config.update(grid_side=side, vertices=side * side, triangles=2 * (side - 1) ** 2)
+        if isinstance(side, dict):
+            for mesh in config["meshes"]:
+                if "file" in mesh:
+                    cut_stl(root / "benchmark", mesh, side[mesh["name"]])
+                else:
+                    grid(mesh, side[mesh["name"]])
+        else:
+            grid(config, side)
         path.write_text(json.dumps(config))
+
+
+def grid(mesh: dict, side: int) -> None:
+    mesh.update(grid_side=side, vertices=side * side, triangles=2 * (side - 1) ** 2)
+
+
+def cut_stl(bench: Path, mesh: dict, triangles: int) -> None:
+    """Keep the first ``triangles`` of a copy's STL, and name the cut file's
+    sha256 and counts in ``mesh``."""
+    from benchmark import meshgen
+    path = bench / mesh["file"]
+    raw = path.read_bytes()
+    path.write_bytes(raw[:80] + triangles.to_bytes(4, "little") + raw[84:84 + 50 * triangles])
+    verts, _ = meshgen.read_stl(path)
+    mesh.update(sha256=hashlib.sha256(path.read_bytes()).hexdigest(),
+                vertices=len(verts), triangles=triangles)
 
 
 def copy_benchmark(dest: Path) -> Path:

@@ -12,8 +12,9 @@ from conftest import REPO
 
 @pytest.mark.card
 @pytest.mark.parametrize("trace", [0, 1])
-def test_the_command_runs_a_cell_on_the_card(card, trace):
-    p = subprocess.run([sys.executable, "benchmark/run.py", "--workload", "vellum.mesh",
+@pytest.mark.parametrize("cell", ["vellum.mesh", "assets.mesh"])
+def test_the_command_runs_a_cell_on_the_card(card, cell, trace):
+    p = subprocess.run([sys.executable, "benchmark/run.py", "--workload", cell,
                         "--seed", "4000000001", "--seconds", "2", "--trace", str(trace)],
                        cwd=REPO, capture_output=True, text=True, timeout=1200)
     assert p.returncode == 0, p.stderr[-3000:]

@@ -43,14 +43,16 @@ def test_a_traced_run_reports_every_new_reader(root, cell):
     res = harness.run_cell(root, cell, 2**32 + 3, 0.3, True, device="cpu")
     assert res["correct"]
     listed = _listed(root, cell)
+    # lucy.points reports its write speed per layer (write_MBps), so the
+    # readers that move encode_MBps are listed in lucy.mesh alone
     assert listed == (set(NEW) if cell == "lucy.mesh"
-                      else set(NEW) - {"int_copy_ms.write", "int_emit_ms.write"})
+                      else {n for n in NEW if n.endswith(".read")})
     got = {k: v["value"] for k, v in res["metrics"].items() if k in NEW}
     assert set(got) == listed
     assert all(isinstance(v, numbers.Real) and v >= 0 for v in got.values())
-    assert got["fp_copy_ms.write"] > 0 and got["read_host_ms.read"] > 0
-    assert got["write_host_ms.write"] > 0 and got["d2h_per_raw.write"] > 0
+    assert got["read_host_ms.read"] > 0
     if cell == "lucy.mesh":  # 8 bytes back a searched plane byte
+        assert got["fp_copy_ms.write"] > 0 and got["write_host_ms.write"] > 0
         assert got["int_copy_ms.write"] > 0 and got["int_emit_ms.write"] > 0
         assert got["d2h_per_raw.write"] > 1
     assert 0 <= got["fp_host_share.read"] <= 100

@@ -10,7 +10,7 @@ import sys
 
 import pytest
 
-from benchmark import harness
+from benchmark import harness, latency
 from conftest import REPO, copy_benchmark
 
 MANIFEST = json.loads((REPO / "BENCHMARK.json").read_text())
@@ -25,13 +25,19 @@ def test_a_tiny_run_of_every_cell_is_correct(tiny_root, cell, trace, capsys):
     section = "per_layer" if trace else "end_to_end"
     manifest = json.loads((tiny_root / "BENCHMARK.json").read_text())
     names = {m["name"] for m in harness.cell_metrics(manifest, cell, section)}
-    # the device's metrics read nothing on the CPU; the spans' do
+    # the device's metrics read nothing on the CPU; the spans' do; a p95
+    # reads nothing under latency.LEAST requests of its kind
     assert set(res["metrics"]) <= names
+    reads = res["checks"]["reads_checked_whole"]["strided"]
+    if res["attempted"] - reads < latency.LEAST:
+        names.discard("write_p95_ms")
+    if reads < latency.LEAST:
+        names.discard("read_p95_ms")
     if not trace:
         assert set(res["metrics"]) == names
     else:
-        assert {n for n in names if n.endswith(("_ms.write", "_ms.read", "_MBps"))} <= set(
-            res["metrics"])
+        spans = ("_ms.write", "_ms.read", "_MBps", "p95_ms")
+        assert {n for n in names if n.endswith(spans)} <= set(res["metrics"])
     out = capsys.readouterr()
     assert json.loads(out.out.strip().splitlines()[-1]) == res
     assert list(res)[-1] == "checks"
