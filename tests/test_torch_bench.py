@@ -216,7 +216,7 @@ def test_archive_leg_stages(extra):
     leg = extra["fullmesh_archive"]
     assert set(bench.WRITE_STEPS) <= set(leg["stage_seconds"]) <= set(bench.WRITE_STEPS) | {
         "fp_h2d", "fp_d2h", "int_planes", "lz4_search", "lz4_d2h", "lz4_emit",
-        "bp_encode", "bp_d2h", "bp_assembly"}
+        "bp_encode", "bp_d2h", "bp_assembly", "write.vertices", "write.triangles"}
     assert 0 <= leg["assembly_frac"] <= 1 and 0 <= leg["other_frac"] <= 1
     side = int(np.sqrt(SMALL["archive_verts"]))
     assert leg["n_vertices"] == side * side

@@ -416,7 +416,8 @@ def test_compress_mesh_profile_stages():
     # on the device)
     assert list(prof.stages) == ["fp_split", "fp_h2d", "fp_d2h", "fp_device_encode",
                                  "fp_gather", "fp_assembly", "fp_tails", "fp_frame",
-                                 "int_planes", "int_encode", "archive_join"]
+                                 "write.vertices", "int_planes", "int_encode",
+                                 "write.triangles", "archive_join"]
     assert prof.stages["fp_assembly"].calls == 3
     assert blob == mc.compress_mesh(s["vertices"], s["triangles"], chunk_len=128,
                                     mesh=cpu_mesh(2))

@@ -28,14 +28,15 @@ BLOCK = 4096
 SIDE = 81  # 6561 vertices: 25 full chunks of 256 and a tail; 38,400 indices: 2 full BP chunks
 CHUNK = 256
 
-WRITE_FP = {"fp_split", "fp_device_encode", "fp_h2d", "fp_d2h", "fp_gather",
-            "fp_assembly", "fp_tails", "fp_frame", "archive_join"}
-WRITE_INT = {"int_encode", "int_planes", "lz4_search", "lz4_d2h", "lz4_emit",
-             "bp_encode", "bp_d2h", "bp_assembly"}
-READ_FP = {"read_framing", "fp_decode", "fp_read_h2d", "fp_read_d2h",
+WRITE_FP = {"write.vertices", "fp_split", "fp_device_encode", "fp_h2d", "fp_d2h",
+            "fp_gather", "fp_assembly", "fp_tails", "fp_frame", "archive_join"}
+WRITE_INT = {"write.triangles", "write.vertex_colors", "int_encode", "int_planes",
+             "lz4_search", "lz4_d2h", "lz4_emit", "bp_encode", "bp_d2h", "bp_assembly"}
+READ_FP = {"read.vertices", "read_framing", "fp_decode", "fp_read_h2d", "fp_read_d2h",
            "fp_host_chunks", "fp_interleave"}
-READ_INT = {"bp_decode", "bp_read_h2d", "bp_read_d2h", "lz4_decode", "int_join"}
-TALLY_ONLY = ("compress_mesh", "fp_read_words", "fp_chunks.")
+READ_INT = {"read.triangles", "read.vertex_colors", "bp_decode", "bp_read_h2d",
+            "bp_read_d2h", "lz4_decode", "int_join"}
+TALLY_ONLY = ("compress_mesh", "archive.", "fp_read_words", "fp_chunks.")
 
 
 def _grid_mesh(side: int, seed: int = 5) -> dict:

@@ -27,6 +27,19 @@ they are the bytes of ``ArchiveWriter(chunk_len=..., layout="tpu")``.
 exponents here, and the TPU workarounds are not carried over: the vma
 check, the cached jitted programs, the sharding constraints and, in one
 process, the padding of the chunk count to a multiple of the shard count.
+
+Every stream is one ``profiling.span`` of its own, around the finer spans
+of its codec:
+
+* ``write.<name>`` in :func:`compress_mesh`, ``name`` the keyword the
+  stream was passed under (``vertices``, ``triangles``, ``vertex_normals``,
+  ``vertex_colors``, ``uv_per_vertex``, ...), with its raw bytes; the tally
+  counts ``archive.<name>``, the bytes the stream added to the archive (its
+  header, count and framed substreams). These counts and the archive's
+  8-byte file header add up to the archive's length;
+* ``read.<name>`` in :func:`decompress_mesh`, ``name`` the key the stream
+  is returned under, from its first substream read to its array, with the
+  array's bytes.
 """
 
 from __future__ import annotations
@@ -390,6 +403,22 @@ class _MeshWriter(ArchiveWriter):
         a = np.ascontiguousarray(a, np.uint8)
         self._write_lz4_planes(StreamType.attribute_uint8, a, a.size)
 
+    def nbytes(self) -> int:
+        """Bytes written so far, the file header included."""
+        return sum(len(p) for p in self._parts)
+
+    def write_stream(self, name: str, arr: np.ndarray):
+        """Write stream ``name`` (a keyword of :func:`compress_mesh`): float64
+        vertices, and triangles of u64 or with an index past u32, by the
+        writers of 64-bit words."""
+        if name == "vertices" and arr.dtype == np.float64:
+            self.write_vertices_double(arr)
+        elif name == "triangles" and (arr.dtype == np.uint64
+                                      or (arr.size and arr.max() >= 2**32)):
+            self.write_triangles_long(arr)
+        else:
+            getattr(self, f"write_{name}")(arr)
+
 
 def compress_mesh(vertices, triangles=None, *, triangle_normals=None,
                   attributes_uint16=None, vertex_normals=None,
@@ -419,47 +448,30 @@ def compress_mesh(vertices, triangles=None, *, triangle_normals=None,
     ``stage(name, nbytes=0, sync=None)`` context manager (a
     ``profiling.StageTimer``, say); every ``profiling.span`` of the call
     goes to it. The tally counts the call under ``compress_mesh`` with the
-    raw input bytes."""
+    raw input bytes, and each stream under ``write.<keyword>`` (its raw
+    bytes) and ``archive.<keyword>`` (the bytes it added to the archive)."""
     if mesh is None:
         mesh = make_mesh()
-    streams = (vertices, triangles, triangle_normals, attributes_uint16,
-               vertex_normals, vertex_colors, uv_per_triangle, uv_per_vertex,
-               attributes_uint8, attributes_uint32, attributes_uint64)
-    profiling.count("compress_mesh", nbytes=sum(
-        np.asarray(a).nbytes for a in streams if a is not None))
+    streams = {"vertices": vertices, "triangles": triangles,
+               "triangle_normals": triangle_normals,
+               "attributes_uint16": attributes_uint16,
+               "vertex_normals": vertex_normals, "vertex_colors": vertex_colors,
+               # the reference's count quirk: uv-per-triangle floats carry 3
+               # uv pairs per triangle and the count is of pairs
+               # (trico.c:577-580)
+               "uv_per_triangle": uv_per_triangle, "uv_per_vertex": uv_per_vertex,
+               "attributes_uint8": attributes_uint8,
+               "attributes_uint32": attributes_uint32,
+               "attributes_uint64": attributes_uint64}
+    streams = {name: np.asarray(a) for name, a in streams.items() if a is not None}
+    profiling.count("compress_mesh", nbytes=sum(a.nbytes for a in streams.values()))
     w = _MeshWriter((chunk_len // 8) * 8 or 8, mesh, optimize)
     with profiling.recording(profile):
-        verts = np.asarray(vertices)
-        if verts.dtype == np.float64:
-            w.write_vertices_double(verts)
-        else:
-            w.write_vertices(verts)
-        if triangles is not None:
-            tris = np.asarray(triangles)
-            if tris.dtype == np.uint64 or (tris.size and tris.max() >= 2**32):
-                w.write_triangles_long(tris)
-            else:
-                w.write_triangles(tris)
-        if triangle_normals is not None:
-            w.write_triangle_normals(triangle_normals)
-        if attributes_uint16 is not None:
-            w.write_attributes_uint16(attributes_uint16)
-        if vertex_normals is not None:
-            w.write_vertex_normals(vertex_normals)
-        if vertex_colors is not None:
-            w.write_vertex_colors(vertex_colors)
-        if uv_per_triangle is not None:
-            # the reference's count quirk: uv-per-triangle floats carry 3 uv
-            # pairs per triangle and the count is of pairs (trico.c:577-580)
-            w.write_uv_per_triangle(uv_per_triangle)
-        if uv_per_vertex is not None:
-            w.write_uv_per_vertex(uv_per_vertex)
-        if attributes_uint8 is not None:
-            w.write_attributes_uint8(attributes_uint8)
-        if attributes_uint32 is not None:
-            w.write_attributes_uint32(attributes_uint32)
-        if attributes_uint64 is not None:
-            w.write_attributes_uint64(attributes_uint64)
+        for name, arr in streams.items():
+            before = w.nbytes()
+            with profiling.span(f"write.{name}", nbytes=arr.nbytes):
+                w.write_stream(name, arr)
+            profiling.count(f"archive.{name}", nbytes=w.nbytes() - before)
         return w.tobytes()
 
 
@@ -489,10 +501,11 @@ def decompress_mesh(blob, mesh: Mesh | None = None,
     container of the tpu layout (f32 and f64) through
     :func:`decode_plane_sharded` and BP containers through
     :func:`decode_bp_sharded`, LZ4 containers through the host decoder (the
-    LZ4 token walk is sequential, lz4.c:1658), and anything else through
-    the reader on the rank's first shard. Returns a dict keyed by stream
-    name (``vertices``, ``triangles``, ``vertex_normals``,
-    ``vertex_colors``, ``uv_per_vertex``, ...).
+    LZ4 token walk is sequential, lz4.c:1658), and other FP containers
+    through the reader's decoder on the rank's first shard. Returns a dict
+    keyed by stream name (``vertices``, ``triangles``, ``vertex_normals``,
+    ``vertex_colors``, ``uv_per_vertex``, ...); each stream's decode is the
+    span ``read.<name>``.
 
     ``route_stats`` (optional dict) is filled with substream counts per
     route: ``sharded_fp``, ``sharded_bp``, ``host_lz4``, ``host_other``.
@@ -505,76 +518,85 @@ def decompress_mesh(blob, mesh: Mesh | None = None,
         route_stats.setdefault(k, 0)
     if mesh is None:
         mesh = make_mesh()
-    dev = mesh.shards[0]
     out: dict = {}
     with profiling.recording(profile):
         with profiling.span("read_framing"):
-            r = ArchiveReader(blob, device=dev)
+            r = ArchiveReader(blob, device=mesh.shards[0])
         while r.next_stream_type != StreamType.empty:
             st = r.next_stream_type
+            name = _NAMES.get(st, st.name)
+            count = r._read_u32()
             if st in _FP_STREAMS:
                 width, bits = _FP_STREAMS[st]
-                count = r._read_u32()
-                planes = []
-                for _ in range(width):
-                    with profiling.span("read_framing"):
-                        payload = bytes(r._read_sub())
-                    # route on the parsed container header, not on raw bytes
-                    hdr = chunked.parse_container_header(payload)
-                    if (hdr is not None and hdr.kind == "fp"
-                            and hdr.layout == "tpu" and hdr.bits == bits):
-                        with profiling.span("fp_decode", nbytes=len(payload)):
-                            planes.append(decode_plane_sharded(payload, mesh))
-                        route_stats["sharded_fp"] += 1
-                    else:
-                        planes.append(chunked.decode_chunked(payload, device=dev)[0])
-                        route_stats["host_other"] += 1
-                for p in planes:
-                    if len(p) != count:
-                        raise ValueError("substream count mismatch")
-                ftype = np.float32 if bits == 32 else np.float64
-                if width > 1:
-                    with profiling.span("fp_interleave",
-                                        nbytes=sum(p.nbytes for p in planes)):
-                        arr = transpose.soa_to_aos(planes).view(ftype).reshape(-1, width)
-                else:
-                    arr = planes[0].view(ftype)
-            elif st in _LZ4_STREAMS:
-                nplanes, dtype, mult = _LZ4_STREAMS[st]
-                count = r._read_u32()
-                with profiling.span("read_framing"):
-                    subs = [bytes(r._read_sub()) for _ in range(nplanes)]
-                hdr = chunked.parse_container_header(subs[0]) if subs else None
-                if hdr is not None and hdr.kind == "bp":
-                    # a BP stream: substream 0 holds the values, the others
-                    # are empty placeholders
-                    with profiling.span("bp_decode", nbytes=len(subs[0])):
-                        arr = decode_bp_sharded(subs[0], mesh).astype(dtype, copy=False)
-                    route_stats["sharded_bp"] += 1
-                else:
-                    planes = []
-                    for sub in subs:
-                        with profiling.span("lz4_decode", nbytes=len(sub)):
-                            planes.append(chunked.decode_lz4_chunked(sub))
-                    if nplanes == 1:
-                        arr = planes[0].view(dtype)
-                    else:
-                        with profiling.span("int_join",
-                                            nbytes=sum(p.nbytes for p in planes)):
-                            arr = transpose.from_byte_planes(planes, dtype)
-                    route_stats["host_lz4"] += 1
-                if len(arr) != count * mult:
-                    raise ValueError("integer substream count mismatch")
-                if mult == 3:
-                    arr = arr.reshape(-1, 3)
+                with profiling.span(f"read.{name}", nbytes=count * width * bits // 8):
+                    arr = _read_fp_stream(r, count, width, bits, mesh, route_stats)
             else:
-                st, arr = r.read_stream()
-                out[_NAMES.get(st, st.name)] = arr
-                route_stats["host_other"] += 1
-                continue
+                nplanes, dtype, mult = _LZ4_STREAMS[st]
+                with profiling.span(f"read.{name}",
+                                    nbytes=count * mult * np.dtype(dtype).itemsize):
+                    arr = _read_int_stream(r, count, nplanes, dtype, mult, mesh,
+                                           route_stats)
             r._advance_stream_type()
-            out[_NAMES.get(st, st.name)] = arr
+            out[name] = arr
     return out
+
+
+def _read_fp_stream(r: ArchiveReader, count: int, width: int, bits: int,
+                    mesh: Mesh, route_stats: dict) -> np.ndarray:
+    """The (count, width) floats of a stream whose count ``r`` has read:
+    tpu-layout containers over the mesh, any other on the rank's first
+    shard."""
+    planes = []
+    for _ in range(width):
+        with profiling.span("read_framing"):
+            payload = bytes(r._read_sub())
+        # route on the parsed container header, not on raw bytes
+        hdr = chunked.parse_container_header(payload)
+        if (hdr is not None and hdr.kind == "fp"
+                and hdr.layout == "tpu" and hdr.bits == bits):
+            with profiling.span("fp_decode", nbytes=len(payload)):
+                planes.append(decode_plane_sharded(payload, mesh))
+            route_stats["sharded_fp"] += 1
+        else:
+            planes.append(chunked.decode_chunked(payload, device=mesh.shards[0])[0])
+            route_stats["host_other"] += 1
+    for p in planes:
+        if len(p) != count:
+            raise ValueError("substream count mismatch")
+    ftype = np.float32 if bits == 32 else np.float64
+    if width == 1:
+        return planes[0].view(ftype)
+    with profiling.span("fp_interleave", nbytes=sum(p.nbytes for p in planes)):
+        return transpose.soa_to_aos(planes).view(ftype).reshape(-1, width)
+
+
+def _read_int_stream(r: ArchiveReader, count: int, nplanes: int, dtype, mult: int,
+                     mesh: Mesh, route_stats: dict) -> np.ndarray:
+    """The integers of a stream whose count ``r`` has read: a BP container
+    over the mesh, LZ4 byte planes on the host."""
+    with profiling.span("read_framing"):
+        subs = [bytes(r._read_sub()) for _ in range(nplanes)]
+    hdr = chunked.parse_container_header(subs[0]) if subs else None
+    if hdr is not None and hdr.kind == "bp":
+        # a BP stream: substream 0 holds the values, the others are empty
+        # placeholders
+        with profiling.span("bp_decode", nbytes=len(subs[0])):
+            arr = decode_bp_sharded(subs[0], mesh).astype(dtype, copy=False)
+        route_stats["sharded_bp"] += 1
+    else:
+        planes = []
+        for sub in subs:
+            with profiling.span("lz4_decode", nbytes=len(sub)):
+                planes.append(chunked.decode_lz4_chunked(sub))
+        if nplanes == 1:
+            arr = planes[0].view(dtype)
+        else:
+            with profiling.span("int_join", nbytes=sum(p.nbytes for p in planes)):
+                arr = transpose.from_byte_planes(planes, dtype)
+        route_stats["host_lz4"] += 1
+    if len(arr) != count * mult:
+        raise ValueError("integer substream count mismatch")
+    return arr.reshape(-1, 3) if mult == 3 else arr
 
 
 def decode_plane_sharded(container: bytes, mesh: Mesh | None = None) -> np.ndarray:
