@@ -36,7 +36,7 @@ READ_FP = {"read.vertices", "read_framing", "fp_decode", "fp_read_h2d", "fp_read
            "fp_host_chunks", "fp_interleave"}
 READ_INT = {"read.triangles", "read.vertex_colors", "bp_decode", "bp_read_h2d",
             "bp_read_d2h", "lz4_decode", "int_join"}
-TALLY_ONLY = ("compress_mesh", "archive.", "fp_read_words", "fp_chunks.")
+TALLY_ONLY = ("compress_mesh", "archive.", "fp_read_words", "fp_chunks.", "byte_planes.")
 
 
 def _grid_mesh(side: int, seed: int = 5) -> dict:

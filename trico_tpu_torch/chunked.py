@@ -613,8 +613,7 @@ def encode_int_best(arr: np.ndarray, block_len: int | None = None, *,
     :func:`encode_bp_chunked`."""
     arr = np.ascontiguousarray(arr)
     with profiling.span("int_planes", nbytes=arr.nbytes):
-        planes = transpose.byte_planes(arr)
-        fills = [len(plane) and not np.any(plane != plane[0]) for plane in planes]
+        planes, fills = transpose.split_byte_planes(arr)
     lz4_subs = [
         encode_fill(int(plane[0]), len(plane)) if fill
         else encode_lz4_chunked(plane, block_len or DEFAULT_LZ4_BLOCK,

@@ -128,7 +128,7 @@ def get_lib():
         lib.tt_fp64_relayout_chunks.restype = i64
         lib.tt_fp64_relayout_chunks.argtypes = [p, i64, i64, i64, ctypes.c_int32, p]
         lib.tt_shuffle_bytes.restype = None
-        lib.tt_shuffle_bytes.argtypes = [p, i64, ctypes.c_int32, p]
+        lib.tt_shuffle_bytes.argtypes = [p, i64, ctypes.c_int32, p, p]
         lib.tt_unshuffle_bytes.restype = None
         lib.tt_unshuffle_bytes.argtypes = [p, i64, ctypes.c_int32, p]
         # spin up the worker pool and fault-in codec arenas now, so one-shot
@@ -356,21 +356,51 @@ def _run_encode_jobs(lib, concat, src_off, src_n, e1s, e2s, bits,
     return [dst[j * cap : j * cap + out_sz[j]].tobytes() for j in range(n_jobs)]
 
 
-def lz4_shuffle_compress(arr: np.ndarray) -> list[np.ndarray]:
-    """Byte-plane shuffle + per-plane LZ4 compress, all native.
-
-    ``arr`` is a little-endian integer array; returns ``itemsize`` payloads
-    (zero-copy views into a per-call buffer). Replaces the NumPy strided
-    shuffle + per-plane python loop of the v0 writer (the reference does the
-    same two steps serially in C, trico.c:332-377)."""
+def split_bytes(arr: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """An integer array's little-endian byte planes, as the rows of one
+    ``(itemsize, arr.size)`` uint8 buffer, and per plane whether every byte
+    equals its first (False for an empty array). Threaded over the pool for
+    streams of 2 MiB and more."""
     lib = get_lib()
     arr = np.ascontiguousarray(arr)
     if arr.dtype.byteorder == ">":
         arr = arr.astype(arr.dtype.newbyteorder("<"))
     w = arr.dtype.itemsize
-    n = arr.size
-    soa = np.empty(w * n, np.uint8)
-    lib.tt_shuffle_bytes(_ptr(arr.view(np.uint8)), n, w, _ptr(soa))
+    planes = np.empty((w, arr.size), np.uint8)
+    fills = np.zeros(w, bool)
+    lib.tt_shuffle_bytes(_ptr(arr), arr.size, w, _ptr(planes), _ptr(fills))
+    return planes, fills
+
+
+def join_bytes(planes, dtype) -> np.ndarray:
+    """Inverse of :func:`split_bytes`: ``itemsize`` byte planes of equal
+    length, each its own buffer (or the rows of one), joined into a new
+    array of ``dtype``."""
+    lib = get_lib()
+    dtype = np.dtype(dtype)
+    w = dtype.itemsize
+    planes = [np.ascontiguousarray(pl, np.uint8).reshape(-1) for pl in planes]
+    if len(planes) != w:
+        raise ValueError(f"{len(planes)} byte planes for a {w}-byte dtype")
+    n = len(planes[0])
+    if any(len(pl) != n for pl in planes):
+        raise ValueError("byte planes of different lengths")
+    out = np.empty(n, dtype.newbyteorder("<"))
+    ptrs = (ctypes.c_void_p * w)(*(pl.ctypes.data for pl in planes))
+    lib.tt_unshuffle_bytes(ptrs, n, w, _ptr(out))
+    return out.astype(dtype, copy=False)
+
+
+def lz4_shuffle_compress(arr: np.ndarray) -> list[np.ndarray]:
+    """Byte-plane shuffle + per-plane LZ4 compress, all native.
+
+    ``arr`` is an integer array; returns ``itemsize`` payloads (zero-copy
+    views into a per-call buffer). Replaces the NumPy strided shuffle +
+    per-plane python loop of the v0 writer (the reference does the same two
+    steps serially in C, trico.c:332-377)."""
+    lib = get_lib()
+    soa, _ = split_bytes(arr)
+    w, n = soa.shape
     lens = np.full(w, n, np.int64)
     offs = (np.arange(w, dtype=np.int64) * n)
     cap = int(lib.tt_lz4_bound(n))
@@ -398,15 +428,13 @@ def lz4_decompress_unshuffle(data, src_offsets, src_sizes, n_elem: int,
     src_sz = np.ascontiguousarray(src_sizes, np.int64)
     dst_off = (np.arange(w, dtype=np.int64) * n_elem)
     dst_sz = np.full(w, n_elem, np.int64)
-    soa = np.empty(w * n_elem, np.uint8)
+    soa = np.empty((w, n_elem), np.uint8)
     rc = lib.tt_lz4_decompress_blocks(
         _ptr(buf), _ptr(src_off), _ptr(src_sz), w,
         _ptr(soa), _ptr(dst_off), _ptr(dst_sz))
     if rc != 0:
         raise ValueError(f"corrupt LZ4 plane {-rc - 1}")
-    out = np.empty(n_elem * w, np.uint8)
-    lib.tt_unshuffle_bytes(_ptr(soa), n_elem, w, _ptr(out))
-    return out.view(dtype.newbyteorder("<")).astype(dtype, copy=False)
+    return join_bytes(soa, dtype)
 
 
 def lz4_compress_jobs(planes: list[np.ndarray]) -> list[bytes]:

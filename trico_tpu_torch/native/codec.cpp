@@ -1781,22 +1781,135 @@ EXPORT void tt_warmup() {
 }
 
 // ------------------------------------------------------- byte-plane shuffle
+//
+// An integer stream's little-endian byte planes: plane p holds byte p of
+// every word, dst[p * n + i] = src[i * width + p] (AoS -> planar), and back.
+// Widths 2, 4 and 8 move a word per element (one load, a shift and a byte
+// store per plane; one byte load per plane, shifts and ORs, one word store);
+// any other width takes the byte loop. Jobs are disjoint element ranges of a
+// multiple of 64 elements: where a plane starts on a cache line, no two
+// threads write one line of it.
 
-EXPORT void tt_shuffle_bytes(const uint8_t* src, int64_t n_elems, int32_t width,
-                             uint8_t* dst) {
-  // dst[plane][i] = src[i*width + plane]  (AoS -> planar)
-  for (int32_t p = 0; p < width; ++p) {
-    uint8_t* d = dst + int64_t(p) * n_elems;
-    const uint8_t* s = src + p;
-    for (int64_t i = 0; i < n_elems; ++i) d[i] = s[i * width];
+namespace {
+
+// Streams under this many bytes run on the calling thread. Measured on an
+// H100 host's 8 cores (u32 words): the pool breaks even at 1 MiB where its
+// workers are still spinning and at 2 MiB where they have gone to sleep
+// (0.1-0.5 ms either way); at 4 MiB it takes 0.16-0.62 ms against 0.4-1.1.
+constexpr int64_t kShuffleSerialBytes = int64_t(2) << 20;
+// bytes of the stream a pool job moves
+constexpr int64_t kShuffleJobBytes = int64_t(256) << 10;
+
+// element ranges [j * step, min((j + 1) * step, n)) for j in [0, jobs)
+struct ShuffleJobs {
+  int64_t step, jobs;
+};
+
+ShuffleJobs shuffle_jobs(int64_t n, int32_t width) {
+  if (n * width < kShuffleSerialBytes) return {n, n > 0 ? 1 : 0};
+  int64_t step = (kShuffleJobBytes / width + 63) / 64 * 64;
+  return {step, (n + step - 1) / step};
+}
+
+// Split elements [lo, hi) of a stream of `n` words of type W; every byte
+// that differs from the first word's byte of its plane sets that byte in
+// the returned mask.
+template <class W>
+W split_words(const uint8_t* src, int64_t lo, int64_t hi, int64_t n,
+              uint8_t* dst) {
+  constexpr int w = int(sizeof(W));
+  W first, diff = 0;
+  std::memcpy(&first, src, w);
+  for (int64_t i = lo; i < hi; ++i) {
+    W v;
+    std::memcpy(&v, src + i * w, w);
+    diff |= v ^ first;
+    for (int p = 0; p < w; ++p) dst[p * n + i] = uint8_t(v >> (8 * p));
+  }
+  return diff;
+}
+
+template <class W>
+void join_words(const uint8_t* const* planes, int64_t lo, int64_t hi,
+                uint8_t* dst) {
+  constexpr int w = int(sizeof(W));
+  const uint8_t* q[w];
+  for (int p = 0; p < w; ++p) q[p] = planes[p];
+  for (int64_t i = lo; i < hi; ++i) {
+    W v = 0;
+    for (int p = 0; p < w; ++p) v |= W(q[p][i]) << (8 * p);
+    std::memcpy(dst + i * w, &v, w);
   }
 }
 
-EXPORT void tt_unshuffle_bytes(const uint8_t* src, int64_t n_elems,
-                               int32_t width, uint8_t* dst) {
-  for (int32_t p = 0; p < width; ++p) {
-    const uint8_t* s = src + int64_t(p) * n_elems;
-    uint8_t* d = dst + p;
-    for (int64_t i = 0; i < n_elems; ++i) d[i * width] = s[i];
+// one job of the split: its elements' planes, and per plane whether a byte
+// differs from the stream's first (diff[p] != 0)
+void split_range(const uint8_t* src, int64_t lo, int64_t hi, int64_t n,
+                 int32_t width, uint8_t* dst, uint8_t* diff) {
+  auto bytes_of = [&](auto mask) {
+    for (int32_t p = 0; p < width; ++p) diff[p] = uint8_t(mask >> (8 * p));
+  };
+  switch (width) {
+    case 2: bytes_of(split_words<uint16_t>(src, lo, hi, n, dst)); return;
+    case 4: bytes_of(split_words<uint32_t>(src, lo, hi, n, dst)); return;
+    case 8: bytes_of(split_words<uint64_t>(src, lo, hi, n, dst)); return;
   }
+  for (int32_t p = 0; p < width; ++p) {
+    uint8_t* d = dst + int64_t(p) * n;
+    const uint8_t* s = src + p;
+    const uint8_t first = src[p];
+    uint8_t acc = 0;
+    for (int64_t i = lo; i < hi; ++i) {
+      d[i] = s[i * width];
+      acc |= uint8_t(s[i * width] ^ first);
+    }
+    diff[p] = acc;
+  }
+}
+
+void join_range(const uint8_t* const* planes, int64_t lo, int64_t hi,
+                int32_t width, uint8_t* dst) {
+  switch (width) {
+    case 2: join_words<uint16_t>(planes, lo, hi, dst); return;
+    case 4: join_words<uint32_t>(planes, lo, hi, dst); return;
+    case 8: join_words<uint64_t>(planes, lo, hi, dst); return;
+  }
+  for (int32_t p = 0; p < width; ++p) {
+    const uint8_t* s = planes[p];
+    uint8_t* d = dst + p;
+    for (int64_t i = lo; i < hi; ++i) d[i * width] = s[i];
+  }
+}
+
+}  // namespace
+
+// Split `n_elems` words of `width` bytes at `src` into the planes of `dst`
+// (width rows of n_elems bytes). fills gets per plane 1 where every byte of
+// it equals its first byte (a fill plane), else 0; 0 for all planes of an
+// empty stream.
+EXPORT void tt_shuffle_bytes(const uint8_t* src, int64_t n_elems, int32_t width,
+                             uint8_t* dst, uint8_t* fills) {
+  const ShuffleJobs jobs = shuffle_jobs(n_elems, width);
+  std::vector<uint8_t> diff(size_t(jobs.jobs * width), 0);
+  par_chunks(jobs.jobs, [&](int64_t j) {
+    const int64_t lo = j * jobs.step;
+    split_range(src, lo, std::min(lo + jobs.step, n_elems), n_elems, width, dst,
+                diff.data() + j * width);
+  });
+  for (int32_t p = 0; p < width; ++p) {
+    uint8_t any = 0;
+    for (int64_t j = 0; j < jobs.jobs; ++j) any |= diff[size_t(j * width + p)];
+    fills[p] = uint8_t(n_elems > 0 && any == 0);
+  }
+}
+
+// Join `width` planes of `n_elems` bytes each (planes[p], separate buffers)
+// into the words at `dst`.
+EXPORT void tt_unshuffle_bytes(const uint8_t* const* planes, int64_t n_elems,
+                               int32_t width, uint8_t* dst) {
+  const ShuffleJobs jobs = shuffle_jobs(n_elems, width);
+  par_chunks(jobs.jobs, [&](int64_t j) {
+    const int64_t lo = j * jobs.step;
+    join_range(planes, lo, std::min(lo + jobs.step, n_elems), width, dst);
+  });
 }
