@@ -21,7 +21,7 @@ import trico_tpu_torch as tt
 from conftest import mesh_like_floats
 from torch_cases import no_native, tpu_native_available
 from trico_tpu.parallel import mesh_codec as jmc
-from trico_tpu_torch import chunked, profiling
+from trico_tpu_torch import chunked, profiling, shards
 from trico_tpu_torch.codec import fp_ref, fp_torch
 from trico_tpu_torch.parallel import mesh_codec as mc
 
@@ -384,7 +384,7 @@ def test_make_mesh_lists_its_shards():
             cpu_mesh(bad)
     with pytest.raises(ValueError):
         mc.make_mesh(2, device="meta")
-    assert [mc._shard_bounds(10, cpu_mesh(k)) for k in (1, 3, 4)] == [
+    assert [shards.shard_bounds(10, cpu_mesh(k)) for k in (1, 3, 4)] == [
         [0, 10], [0, 3, 6, 10], [0, 2, 5, 7, 10]]
 
 

@@ -179,3 +179,21 @@ def test_foreign_bp64_chunks_past_8192_decode_on_the_host(launched, jmesh):
     np.testing.assert_array_equal(out, vals)
     np.testing.assert_array_equal(out, jmc.decode_bp_sharded(cont, jmesh))
     assert launched == []
+
+
+@pytest.mark.parametrize("decode", ["decode_chunked", "decode_plane_sharded"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_a_total_raised_past_the_tail_chunk_raises(dtype, decode):
+    """700 values of a seeded walk in chunks of 64, the container's total
+    raised to 702 (the chunk count, 11, still matches): the tail chunk
+    decodes to 60 values where the total leaves it 62, and the decoder
+    raises instead of returning two uninitialised words."""
+    vals = np.cumsum(np.random.default_rng(1).standard_normal(700)).astype(dtype)
+    words = vals.view(np.uint32 if dtype == np.float32 else np.uint64)
+    cont = bytearray(chunked.encode_chunked(words, 64, layout="tpu", device="cpu"))
+    assert struct.unpack_from("<II", cont, 6) == (700, 11)
+    struct.pack_into("<I", cont, 6, 702)
+    dec = {"decode_chunked": lambda d: chunked.decode_chunked(d, device="cpu"),
+           "decode_plane_sharded": lambda d: mc.decode_plane_sharded(d, cpu_mesh(2))}
+    with pytest.raises(ValueError, match="count the total leaves"):
+        dec[decode](bytes(cont))

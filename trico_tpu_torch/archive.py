@@ -153,35 +153,19 @@ class ArchiveWriter:
         self._native = None
         if use_native and not chunk_len and native.available():
             self._native = native
-        # whole-plane adaptive exponents (v0); chunked archives adapt
-        # per chunk inside encode_chunked instead (device argmin — one
-        # program, no 5x host encodes)
-        # NOTE: must preserve the string profiles ("fast"/"max") — a plain
-        # ``optimize and not chunk_len`` would collapse them to bool True
-        self._optimize = optimize if not chunk_len else False
+        # v0: whole-plane adaptive exponents; chunked archives adapt per
+        # chunk inside chunked.encode_fp_planes (device argmin). The string
+        # profiles ("fast"/"max") are kept as they are.
+        self._optimize = optimize
+        # Chunk layout: v2 "tpu" (tags-first) unless the caller names the
+        # reference layout. Sizes are identical either way; the container
+        # is self-describing.
+        self._layout = layout or "tpu"
         version = 1 if chunk_len else VERSION
         self._parts: list[bytes] = [struct.pack("<II", MAGIC, version)]
         if chunk_len:
-            # Chunk layout: v2 "tpu" (tags-first) unless the caller names the
-            # reference layout. Sizes are identical either way; the container
-            # is self-describing.
-            if layout is None:
-                layout = "tpu"
-            dev = self._device
-
-            def _enc(vals, e1, e2):
-                # the v0 stream default (4,10) maps to the chunked-mode
-                # default F32_TPU_EXP (self-describing per chunk); explicit
-                # caller exponents pass through
-                if (e1, e2) == F32_EXP and vals.dtype == np.uint32:
-                    e1, e2 = chunked.F32_TPU_EXP
-                return chunked.encode_chunked(vals, chunk_len, e1, e2,
-                                              layout=layout, optimize=optimize,
-                                              device=dev)
-
-            self._fp_enc = _enc
             self._lz4_c = lambda plane: chunked.encode_lz4_chunked(
-                plane, device=dev)
+                plane, device=self._device)
 
     # -- low-level helpers -------------------------------------------------
 
@@ -194,7 +178,8 @@ class ArchiveWriter:
         self._parts.append(struct.pack("<I", len(payload)))
         self._parts.append(payload)
 
-    def _write_fp_planes(self, st: StreamType, arr: np.ndarray, width: int, count: int):
+    def _write_fp_planes(self, st: StreamType, arr: np.ndarray, width: int, count: int,
+                         f32_chunk_exp=chunked.F32_TPU_EXP):
         if arr.dtype == np.float32:
             raw, exp = arr.view(np.uint32), F32_EXP
         elif arr.dtype == np.float64:
@@ -206,14 +191,25 @@ class ArchiveWriter:
         # views; the native search encoder takes the block in one call)
         with profiling.span("fp_split", nbytes=raw.nbytes):
             soa = np.ascontiguousarray(raw.reshape(-1, width).T)
-        for payload in self._fp_best_planes(soa, exp):
+        for payload in self._fp_best_planes(soa, exp, f32_chunk_exp):
             self._sub(payload)
 
-    def _fp_best_planes(self, planes, default_exp) -> list[bytes]:
-        """Encode planes; with optimize, pick the smallest payload per plane
-        over the candidate exponent set (self-describing, so decode is
-        unaffected). All (plane, candidate) jobs run concurrently on the
-        native path — wall time is one encode, not len(planes)*len(cands)."""
+    def _fp_best_planes(self, planes, default_exp,
+                        f32_chunk_exp=chunked.F32_TPU_EXP) -> list[bytes]:
+        """Encode (p, N) planes. v1: :func:`chunked.encode_fp_planes`, the
+        full chunks of every plane in one batch on the device, f32 chunks at
+        ``f32_chunk_exp`` without ``optimize`` (the v0 default (4,10) maps to
+        the chunked default (4,6); exponents are self-describing per chunk).
+        v0: with optimize, pick the smallest payload per plane over the
+        candidate exponent set (self-describing, so decode is unaffected).
+        All (plane, candidate) jobs run concurrently on the native path —
+        wall time is one encode, not len(planes)*len(cands)."""
+        if self._chunk_len:
+            exp = f32_chunk_exp if planes.dtype == np.uint32 else default_exp
+            return chunked.encode_fp_planes(planes, self._chunk_len, *exp,
+                                            layout=self._layout,
+                                            optimize=self._optimize,
+                                            device=self._device)
         if self._optimize == "max":
             cands = (F32_EXP_CANDIDATES_MAX if planes[0].dtype == np.uint32
                      else F64_EXP_CANDIDATES_MAX)
@@ -252,25 +248,25 @@ class ArchiveWriter:
 
     def _fp_best(self, plane: np.ndarray, default_exp) -> bytes:
         """Single-plane form of :meth:`_fp_best_planes`."""
-        return self._fp_best_planes([plane], default_exp)[0]
+        return self._fp_best_planes(plane[None], default_exp)[0]
 
     def _write_lz4_planes(self, st: StreamType, arr: np.ndarray, count: int):
-        self._begin(st, count)
-        if self._chunk_len:
-            # v1: pick-best integer coding per stream — BP32 vs LZ4 byte
-            # planes for u32/u64 (BP32 wins ~6% on index-like data), with
-            # constant planes short-circuited to 19-byte fill containers
-            # for every width (chunked.encode_int_best)
-            for payload in chunked.encode_int_best(arr, device=self._device):
-                self._sub(payload)
-            return
-        if self._native is not None:
-            # fused native shuffle + threaded partitioned LZ4 (one call)
-            for payload in self._native.lz4_shuffle_compress(arr):
-                self._sub(payload)
-            return
-        for plane in transpose.byte_planes(arr):
-            self._sub(self._lz4_c(plane))
+        with profiling.span("int_encode", nbytes=arr.nbytes):
+            self._begin(st, count)
+            if self._chunk_len:
+                # v1: pick-best integer coding per stream — BP32 vs LZ4 byte
+                # planes for u32/u64 (BP32 wins ~6% on index-like data), with
+                # constant planes short-circuited to 19-byte fill containers
+                # for every width (chunked.encode_int_best)
+                for payload in chunked.encode_int_best(arr, device=self._device):
+                    self._sub(payload)
+            elif self._native is not None:
+                # fused native shuffle + threaded partitioned LZ4 (one call)
+                for payload in self._native.lz4_shuffle_compress(arr):
+                    self._sub(payload)
+            else:
+                for plane in transpose.byte_planes(arr):
+                    self._sub(self._lz4_c(plane))
 
     # -- typed writers (parity with trico.h:40-59) -------------------------
 
@@ -359,7 +355,41 @@ class ArchiveWriter:
         a = np.ascontiguousarray(a, dtype=np.uint64)
         self._write_lz4_planes(StreamType.attribute_uint64, a, a.size)
 
+    def write_stream(self, name: str, arr) -> None:
+        """Write ``arr`` as the stream that
+        :func:`trico_tpu_torch.parallel.compress_mesh` takes under keyword
+        ``name`` (``vertices``, ``triangles``, ``vertex_normals``, ...):
+        float64 vertices, and triangles of u64 or with an index past u32, as
+        the streams of 64-bit words; every other stream cast as its typed
+        writer casts it. It codes two streams otherwise than the typed
+        writers, as ``trico_tpu``'s ``compress_mesh`` does, whose bytes the
+        port's are held to."""
+        arr = np.asarray(arr)
+        st = _KEYWORDS[name]
+        if st == StreamType.vertex_float and arr.dtype == np.float64:
+            st = StreamType.vertex_double
+        elif st == StreamType.triangle_uint32 and (
+                arr.dtype == np.uint64
+                # no value of 4 bytes or fewer reaches 2**32
+                or (arr.dtype.itemsize > 4 and arr.size and arr.max() >= 2**32)):
+            st = StreamType.triangle_uint64
+        if st in _FP_STREAMS:
+            width, bits = _FP_STREAMS[st]
+            a = np.ascontiguousarray(arr, np.float32 if bits == 32 else np.float64)
+            # f32 chunks keep the v0 default (4,10) where optimize is off
+            self._write_fp_planes(st, a, width, a.size // width, f32_chunk_exp=F32_EXP)
+        else:
+            _, dtype, mult = _LZ4_STREAMS[st]
+            a = np.ascontiguousarray(arr, dtype)
+            # uint8 attributes too take encode_int_best (a fill container
+            # where constant), like every integer stream
+            self._write_lz4_planes(st, a, a.size // mult)
+
     # ----------------------------------------------------------------------
+
+    def nbytes(self) -> int:
+        """Bytes written so far, the file header included."""
+        return sum(len(p) for p in self._parts)
 
     def tobytes(self) -> bytes:
         with profiling.span("archive_join",
@@ -399,17 +429,99 @@ _LZ4_STREAMS = {
 }
 
 
+# The name a stream goes by: the keyword compress_mesh writes it from and the
+# key it reads back under (stream_name); the stream type's own name where
+# there is none.
+_NAMES = {
+    StreamType.vertex_float: "vertices",
+    StreamType.vertex_double: "vertices",
+    StreamType.triangle_uint32: "triangles",
+    StreamType.triangle_uint64: "triangles",
+    StreamType.vertex_normal_float: "vertex_normals",
+    StreamType.vertex_normal_double: "vertex_normals",
+    StreamType.triangle_normal_float: "triangle_normals",
+    StreamType.triangle_normal_double: "triangle_normals",
+    StreamType.vertex_color: "vertex_colors",
+    StreamType.triangle_color: "triangle_colors",
+    StreamType.uv_per_vertex_float: "uv_per_vertex",
+    StreamType.uv_per_vertex_double: "uv_per_vertex",
+    StreamType.uv_per_triangle_float: "uv_per_triangle",
+    StreamType.uv_per_triangle_double: "uv_per_triangle",
+}
+# compress_mesh's keywords and the stream type each writes (write_stream)
+_KEYWORDS = {
+    "vertices": StreamType.vertex_float,
+    "triangles": StreamType.triangle_uint32,
+    "triangle_normals": StreamType.triangle_normal_float,
+    "vertex_normals": StreamType.vertex_normal_float,
+    "vertex_colors": StreamType.vertex_color,
+    "uv_per_triangle": StreamType.uv_per_triangle_float,
+    "uv_per_vertex": StreamType.uv_per_vertex_float,
+    "attributes_uint8": StreamType.attribute_uint8,
+    "attributes_uint16": StreamType.attribute_uint16,
+    "attributes_uint32": StreamType.attribute_uint32,
+    "attributes_uint64": StreamType.attribute_uint64,
+}
+
+
+def stream_name(st: StreamType) -> str:
+    """The key a stream of type ``st`` reads back under: ``vertices``,
+    ``triangles``, ``vertex_normals``, ... (``decompress_mesh``'s), or the
+    stream type's own name."""
+    return _NAMES.get(st, st.name)
+
+
+def _fp_array(planes, count: int, bits: int) -> np.ndarray:
+    """An FP stream's decoded planes → its (count, width) floats (or
+    (count,) for one plane)."""
+    for p in planes:
+        if len(p) != count:
+            raise ValueError("substream count mismatch")
+    ftype = np.float32 if bits == 32 else np.float64
+    if len(planes) == 1:
+        return planes[0].view(ftype)
+    with profiling.span("fp_interleave", nbytes=sum(p.nbytes for p in planes)):
+        return transpose.soa_to_aos(planes).view(ftype).reshape(-1, len(planes))
+
+
+def _int_array(words, n_elem: int, dtype, mult: int) -> np.ndarray:
+    """An integer stream's words (one array) or byte planes (a list) → its
+    ``n_elem`` values, (count, 3) for triangles."""
+    if isinstance(words, np.ndarray):
+        arr = words.astype(dtype, copy=False)
+    elif len(words) == 1:
+        arr = words[0].view(dtype)
+    else:
+        with profiling.span("int_join", nbytes=sum(p.nbytes for p in words)):
+            arr = transpose.from_byte_planes(words, dtype)
+    if len(arr) != n_elem:
+        raise ValueError("integer substream count mismatch")
+    return arr.reshape(-1, 3) if mult == 3 else arr
+
+
 class ArchiveReader:
     """Reads a trico archive (reference- or self-produced).
 
     State machine matches the reference: the next stream's tag is always
     prefetched (trico.c:100-124); typed reads fail on tag mismatch; peeks do
     not advance (trico.c:860-941); skip works for every known type. The FP
-    and BP substreams of a v1 archive decode on ``device``.
+    and BP substreams of a v1 archive decode on ``device`` (a device or a
+    ``shards.Mesh``).
+
+    Every stream is one walk (:meth:`read_stream`): its type, count and
+    substream payloads, read in place; then one decode per container, by
+    its kind (:meth:`decode_fp`, :meth:`decode_bp`, :meth:`decode_lz4`,
+    which a subclass may route elsewhere; v0 substreams decode on the
+    host); then one assembly of the decoded planes into the stream's array.
+    Its spans: ``read.<name>`` around the stream (``name`` as
+    :func:`stream_name`), ``read_framing`` around its substreams' reads,
+    ``fp_decode``, ``bp_decode`` and ``lz4_decode`` around each v1
+    container's decode, ``fp_interleave`` and ``int_join`` around the
+    assembly's copies.
     """
 
     def __init__(self, data, use_native: bool = True, *, device="cuda"):
-        self._device = dev = chunked._resolve_device(device)
+        self._device = chunked._resolve_device(device)
         _, self._fp_dec, _, self._lz4_d = _backends(use_native)
         self._native = None
         if use_native and native.available():
@@ -420,18 +532,9 @@ class ArchiveReader:
         magic, version = struct.unpack_from("<II", self._data, 0)
         if magic != MAGIC:
             raise ValueError("not a trico archive (bad magic)")
-        self.version = version
-        if version == 1:
-            def _dec(payload, bits):
-                vals, got_bits = chunked.decode_chunked(payload, device=dev)
-                if got_bits != bits:
-                    raise ValueError("chunked container width mismatch")
-                return vals
-
-            self._fp_dec = _dec
-            self._lz4_d = lambda payload, n: chunked.decode_lz4_chunked(payload)
-        elif version != 0:
+        if version not in (0, 1):
             raise ValueError(f"unsupported archive version {version}")
+        self.version = version
         self._pos = 8
         self._advance_stream_type()
 
@@ -506,67 +609,87 @@ class ArchiveReader:
             raise ValueError(f"expected {expect.name} stream, found {st.name}")
         count = self._read_u32()
         if st in _FP_STREAMS:
-            width, bits = _FP_STREAMS[st]
-            subs = [np.frombuffer(self._read_sub(), dtype=np.uint8)
-                    for _ in range(width)]
-            if self._native is not None and self.version == 0 and width > 1:
-                # all planes through one threaded native call (the reference
-                # decodes substreams one at a time, trico.c:950-958)
-                for s in subs:
-                    if len(s) < 5:
-                        raise ValueError("truncated FP substream")
-                counts = np.array(
-                    [int.from_bytes(s[1:5].tobytes(), "big") for s in subs],
-                    np.int64)
-                sizes = np.array([len(s) for s in subs], np.int64)
-                offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
-                vals = self._native.fp_decode_blocks(
-                    np.concatenate(subs), offs, sizes, counts, bits)
-                planes = np.split(vals, np.cumsum(counts)[:-1])
-            else:
-                planes = [self._fp_dec(s, bits) for s in subs]
-            for p in planes:
-                if len(p) != count:
-                    raise ValueError("substream count mismatch")
-            ftype = np.float32 if bits == 32 else np.float64
-            if width == 1:
-                arr = planes[0].view(ftype)
-            else:
-                arr = transpose.soa_to_aos(planes).view(ftype).reshape(-1, width)
+            n_sub, bits = _FP_STREAMS[st]
+            nbytes = count * n_sub * bits // 8
         else:
-            nplanes, dtype, mult = _LZ4_STREAMS[st]
-            n_elem = count * mult
-            subs = [np.frombuffer(self._read_sub(), dtype=np.uint8)
-                    for _ in range(nplanes)]
-            bp_hdr = None
-            if self.version == 1 and subs:
-                bp_hdr = chunked.parse_container_header(subs[0])
-                if bp_hdr is not None and bp_hdr.kind != "bp":
-                    bp_hdr = None
-            if bp_hdr is not None:
-                # BP32 stream: full values live in substream 0; the remaining
-                # substreams are empty placeholders keeping framing fixed
-                arr = chunked.decode_bp_chunked(
-                    subs[0], device=self._device).astype(dtype, copy=False)
-                if len(arr) != n_elem:
-                    raise ValueError("BP32 substream count mismatch")
-            elif (self._native is not None and self.version == 0
-                    and nplanes > 1 and n_elem):
-                # fused native: threaded per-plane LZ4 decode + byte unshuffle
-                sizes = np.array([len(s) for s in subs], np.int64)
-                offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
-                arr = self._native.lz4_decompress_unshuffle(
-                    np.concatenate(subs), offs, sizes, n_elem, dtype)
+            n_sub, dtype, mult = _LZ4_STREAMS[st]
+            nbytes = count * mult * np.dtype(dtype).itemsize
+        with profiling.span(f"read.{stream_name(st)}", nbytes=nbytes):
+            with profiling.span("read_framing"):
+                subs = [self._read_sub() for _ in range(n_sub)]
+            if st in _FP_STREAMS:
+                arr = _fp_array(self._fp_planes(subs, bits), count, bits)
             else:
-                planes = [self._lz4_d(s, n_elem) for s in subs]
-                if nplanes == 1:
-                    arr = planes[0].view(dtype)
-                else:
-                    arr = transpose.from_byte_planes(planes, dtype)
-            if mult == 3:
-                arr = arr.reshape(-1, 3)
+                arr = _int_array(self._int_words(subs, count * mult, dtype),
+                                 count * mult, dtype, mult)
         self._advance_stream_type()
         return st, arr
+
+    def _fp_planes(self, subs, bits: int) -> list[np.ndarray]:
+        """The decoded words of each FP substream."""
+        if self.version == 1:
+            planes = []
+            for s in subs:
+                with profiling.span("fp_decode", nbytes=len(s)):
+                    planes.append(self.decode_fp(s, bits))
+            return planes
+        subs = [np.frombuffer(s, dtype=np.uint8) for s in subs]
+        if self._native is None or len(subs) == 1:
+            return [self._fp_dec(s, bits) for s in subs]
+        # all planes through one threaded native call (the reference
+        # decodes substreams one at a time, trico.c:950-958)
+        for s in subs:
+            if len(s) < 5:
+                raise ValueError("truncated FP substream")
+        counts = np.array([int.from_bytes(s[1:5].tobytes(), "big") for s in subs],
+                          np.int64)
+        sizes = np.array([len(s) for s in subs], np.int64)
+        offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+        vals = self._native.fp_decode_blocks(np.concatenate(subs), offs, sizes,
+                                             counts, bits)
+        return np.split(vals, np.cumsum(counts)[:-1])
+
+    def _int_words(self, subs, n_elem: int, dtype):
+        """An integer stream's words (one array), or its byte planes (a
+        list): a v1 BP container (substream 0; the others are empty
+        placeholders that keep the framing fixed), else LZ4 byte planes."""
+        if self.version == 1:
+            hdr = chunked.parse_container_header(subs[0])
+            if hdr is not None and hdr.kind == "bp":
+                with profiling.span("bp_decode", nbytes=len(subs[0])):
+                    return self.decode_bp(subs[0])
+            return self.decode_lz4(subs)
+        subs = [np.frombuffer(s, dtype=np.uint8) for s in subs]
+        if self._native is not None and len(subs) > 1 and n_elem:
+            # fused native: threaded per-plane LZ4 decode + byte unshuffle
+            sizes = np.array([len(s) for s in subs], np.int64)
+            offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+            return self._native.lz4_decompress_unshuffle(
+                np.concatenate(subs), offs, sizes, n_elem, dtype)
+        return [self._lz4_d(s, n_elem) for s in subs]
+
+    # -- the v1 decoders, one per container kind ---------------------------
+
+    def decode_fp(self, payload, bits: int) -> np.ndarray:
+        """A v1 FP container → its u32 (``bits`` 32) or u64 words."""
+        vals, got_bits = chunked.decode_chunked(payload, device=self._device)
+        if got_bits != bits:
+            raise ValueError("chunked container width mismatch")
+        return vals
+
+    def decode_bp(self, payload) -> np.ndarray:
+        """A v1 BP container → its u32 or u64 words."""
+        return chunked.decode_bp_chunked(payload, device=self._device)
+
+    def decode_lz4(self, payloads) -> list[np.ndarray]:
+        """An integer stream's v1 LZ4 (or fill) containers → its byte
+        planes, on the host (the LZ4 token walk is sequential, lz4.c:1658):
+        ``chunked.decode_lz4_chunked``, looked up at each call."""
+        planes = []
+        for p in payloads:
+            with profiling.span("lz4_decode", nbytes=len(p)):
+                planes.append(chunked.decode_lz4_chunked(p))
+        return planes
 
     # -- typed readers (parity with trico.h:74-94) -------------------------
 

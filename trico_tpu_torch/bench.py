@@ -77,12 +77,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import _u32, _u64, chunked
+from . import _u32, _u64
 from .archive import ArchiveReader, ArchiveWriter
 from .codec import bp_torch, fp64_torch, fp_cuda, fp_torch
 from .io.stl import read_stl
 from .parallel import mesh_codec
 from .profiling import StageTimer
+from .shards import torch_device
 
 N_VALUES = 8 * 1024 * 1024  # bench.py:561: the headline stream
 CHUNK_LEN = 4096  # bench.py:563: chunked.DEFAULT_CHUNK_LEN
@@ -480,7 +481,7 @@ def run(*, device="cuda", n_values: int = N_VALUES, chunk_len: int = CHUNK_LEN,
     7/2 triangles (29,360,128), f64 twice it (16,777,216). ``reps``
     replaces every leg's rep count (bench.py's formula; the bunny's best of
     9)."""
-    dev = chunked._resolve_device(device)
+    dev = torch_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     legs = _Legs(dev)

@@ -28,7 +28,10 @@ port's own copies of ``trico_tpu.chunked``'s host code, under the same names;
 they run the C++ host library (:mod:`.native`) when it is built and the NumPy
 oracles otherwise, with the same bytes. Full chunks run on ``device``:
 ``"cuda"``, the default, launches the port's kernels and raises where there
-is no card; ``"cpu"`` runs their plain versions. Where ``trico_tpu`` itself
+is no card; ``"cpu"`` runs their plain versions. ``device`` may also be a
+:class:`~.shards.Mesh`: a device is the mesh of one shard, and the FP and
+BP codecs split their full chunks over the shards (:mod:`.shards`); the
+integer encodes run on its first shard. Where ``trico_tpu`` itself
 takes the host on a device host (no full chunk or LZ4 block, f64
 reference-layout chunks that are adaptive or lack the host library), so does
 the port.
@@ -41,9 +44,9 @@ import struct
 import numpy as np
 import torch
 
-from . import _u32, _u64, native, profiling, staging
-from .codec import (bp_ref, bp_torch, fp64_torch, fp_ref, fp_torch, lz4_ref,
-                    lz4_torch, transpose)
+from . import _u32, _u64, native, profiling, shards, staging
+from .codec import (bp_ref, bp_torch, fp64_torch, fp_cuda, fp_ref, fp_torch,
+                    lz4_ref, lz4_torch, transpose)
 
 DEFAULT_CHUNK_LEN = 4096
 DEFAULT_BP_CHUNK = 16384  # values per BP chunk (64 KiB of u32)
@@ -57,7 +60,9 @@ F32_TPU_CANDIDATES_FAST = fp_torch.F32_TPU_CANDIDATES_FAST
 F64_TPU_CANDIDATES = fp64_torch.F64_TPU_CANDIDATES
 F64_TPU_CANDIDATES_FAST = fp64_torch.F64_TPU_CANDIDATES_FAST
 # Full chunks whose tables exceed this many words decode on host threads, as
-# in trico_tpu.chunked.decode_chunked.
+# in trico_tpu.chunked.decode_chunked: the decode's one gate, in
+# decode_chunked (fp_cuda.tables_fit is the encode kernels' shared-memory
+# gate, another decision).
 DEVICE_TABLE_WORDS = 1 << 12
 _FLAG_F64 = 1  # flags bit 0: element width
 _FLAG_LZ4 = 2  # flags bit 1: chunked LZ4 container
@@ -65,15 +70,13 @@ _FLAG_TPU_LAYOUT = 4  # flags bit 2: v2 chunk layout
 _FLAG_BP = 8  # flags bit 3: BP32 / BP64 container
 
 
-def _resolve_device(device="cuda") -> torch.device:
-    """The torch device to run on; raises for a card that is not there."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                           "available")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
+def _resolve_device(device="cuda") -> shards.Mesh:
+    """The mesh to run on: a :class:`~.shards.Mesh` as given, or a device
+    (``"cuda"``, ``"cpu"``, a ``torch.device``) as the mesh of one shard;
+    raises for a card that is not there."""
+    if isinstance(device, shards.Mesh):
+        return device
+    return shards.Mesh([shards.torch_device(device)])
 
 
 class ContainerHeader:
@@ -275,12 +278,102 @@ def _rows_body(mat: np.ndarray, sizes) -> tuple[list, list]:
 # ---------------------------------------------------------------------------
 
 
-def encode_chunked(values: np.ndarray, chunk_len: int = DEFAULT_CHUNK_LEN,
-                   e1: int | None = None, e2: int | None = None,
-                   layout: str = "tpu", optimize: bool | str = False, *,
-                   device="cuda") -> bytes:
-    """Encode a uint32 (f32) or uint64 (f64) raw-bits stream into a v1
-    chunked FP container whose full chunks are encoded on ``device``.
+def _fp_max_bytes(bits: int, L: int) -> int:
+    return (fp_torch.f32_max_chunk_bytes(L) if bits == 32
+            else fp64_torch.f64_max_chunk_bytes(L))
+
+
+def _pack_ref(x, bits: int, e1: int, e2: int):
+    """Reference-layout payload rows of (c, L) words on a device: the
+    device predictor, then the C++ host library's pack → host tensors
+    ((c, B) uint8, (c,) int32 sizes)."""
+    e1, e2 = fp_cuda._norm_exponents(e1, e2)
+    lib, L = native.get_lib(), x.shape[1]
+    if bits == 32:
+        fn, predict = lib.tt_fp32_pack_chunks, fp_torch.predict_f32_chunks
+    else:
+        fn, predict = lib.tt_fp64_pack_chunks, fp64_torch.predict_f64_chunks
+    out, sizes = fp_torch.pack_native(fn, *predict(x, e1, e2), L, e1, e2,
+                                      _fp_max_bytes(bits, L))
+    return torch.from_numpy(out), torch.from_numpy(sizes.astype(np.int32))
+
+
+def _encode_rows(full: np.ndarray, e1: int, e2: int, layout: str, cands,
+                 mesh: shards.Mesh) -> tuple[np.ndarray, np.ndarray]:
+    """(p, C, L) full chunks of u32 (f32) or u64 (f64) words → (this rank's
+    payload rows (p, c, B), every chunk's size (p, C)): each shard encodes
+    its chunks as one batch, at (e1, e2) or, given ``cands``, at each
+    chunk's smallest candidate, and the sizes are all-gathered.
+    Reference-layout chunks are packed by the C++ host library (on the
+    device without it, f32 only); adaptive ones are searched in the v2
+    layout and relaid out on the host (a byte permutation, sizes
+    unchanged)."""
+    bits, L = full.dtype.itemsize * 8, full.shape[2]
+    f32 = bits == 32
+    if cands is not None:
+        cc = tuple(cands)
+        enc = ((lambda x: fp_torch.encode_f32_chunks_v2_adaptive(x, cc)) if f32
+               else (lambda x: fp64_torch.encode_f64_chunks_v2_adaptive(x, cc)))
+    elif layout == "tpu":
+        enc = ((lambda x: fp_torch.encode_f32_chunks_v2(x, e1, e2)) if f32
+               else (lambda x: fp64_torch.encode_f64_chunks_v2(x, e1, e2)))
+    elif native.available():
+        enc = lambda x: _pack_ref(x, bits, e1, e2)  # noqa: E731
+    else:
+        enc = lambda x: fp_torch.encode_f32_chunks(x, e1, e2)  # noqa: E731
+    payloads, sizes = shards.local_chunks(
+        enc, full, mesh, [((_fp_max_bytes(bits, L),), np.uint8), ((), np.uint32)],
+        ("fp_h2d", "fp_d2h"))
+    if layout == "ref" and cands is not None:
+        p, c, B = payloads.shape
+        if native.available():
+            payloads = native.relayout_chunks(payloads.reshape(p * c, B), L, 32,
+                                              to_v2=False).reshape(p, c, B)
+        else:
+            for row, size in zip(payloads.reshape(p * c, B), sizes.reshape(-1)):
+                row[:size] = fp_torch.relayout_f32_v2_to_v1(row[:size])
+    return payloads, shards.gather_to_host(sizes, full.shape[1], mesh).astype(np.int64)
+
+
+def _decode_rows(rows: np.ndarray, L: int, e1: int, e2: int, bits: int,
+                 layout: str, mesh: shards.Mesh) -> np.ndarray:
+    """(p, C, B) payload rows of one exponent pair → (p, C, L) u32 (f32) or
+    u64 (f64) words on every rank: each shard decodes its chunks as one
+    batch, and the words are gathered in chunk order. Reference-layout
+    chunks are parsed by the C++ host library and replayed on the shards,
+    or, f32 without the library, parsed on the shards too."""
+    f32 = bits == 32
+    dtype = np.uint32 if f32 else np.uint64
+    inputs = rows
+    if layout == "tpu":
+        dec = ((lambda x: (fp_torch.decode_f32_chunks_v2(x, L, e1, e2),)) if f32
+               else (lambda x: (fp64_torch.decode_f64_chunks_v2(x, L, e1, e2),)))
+    elif native.available():
+        lib = native.get_lib()
+        p, C, B = rows.shape
+        bc, xo = fp_torch.parse_native(
+            lib.tt_fp32_parse_chunks if f32 else lib.tt_fp64_parse_chunks,
+            rows.reshape(p * C, B), L, dtype)
+        inputs = (bc.reshape(p, C, L), xo.reshape(p, C, L))
+        dec = ((lambda b, x: (fp_torch.replay_f32_chunks(b, x, e1, e2),)) if f32
+               else (lambda b, x: (fp64_torch.replay_f64_chunks(b, x, e1, e2),)))
+    else:
+        dec = lambda x: (fp_torch.decode_f32_chunks(x, L, e1, e2),)  # noqa: E731
+    (vals,) = shards.local_chunks(dec, inputs, mesh, [((L,), dtype)],
+                                  ("fp_read_h2d", "fp_read_d2h"))
+    return shards.gather_to_host(vals, rows.shape[1], mesh)
+
+
+def encode_fp_planes(planes: np.ndarray, chunk_len: int = DEFAULT_CHUNK_LEN,
+                     e1: int | None = None, e2: int | None = None,
+                     layout: str = "tpu", optimize: bool | str = False, *,
+                     device="cuda") -> list[bytes]:
+    """Encode (p, N) planes of uint32 (f32) or uint64 (f64) raw bits into
+    one v1 chunked FP container per plane. The full chunks of all p planes
+    ride one batch on each shard of ``device`` (a device or a
+    :class:`~.shards.Mesh`); the tail chunks are host-coded, in the
+    reference layout, with the same choice of exponents. The bytes do not
+    depend on the shard count.
 
     The defaults follow ``trico_tpu.chunked.encode_chunked``: exponents
     (4,6) for f32 and (20,20) for f64; ``chunk_len`` rounded down to a
@@ -288,99 +381,132 @@ def encode_chunked(values: np.ndarray, chunk_len: int = DEFAULT_CHUNK_LEN,
     exponents from the full candidate set of its width, ``optimize="fast"``
     from the ``*_FAST`` set. ``layout="tpu"`` writes v2 chunks,
     ``layout="ref"`` reference-layout chunks (packed by the C++ host
-    library; without it, f32 chunks are packed on the device by
-    ``fp_torch.pack_f32_chunks`` and f64 chunks are host-coded, as in
-    ``trico_tpu``). The tail chunk is host-coded, in the reference layout,
-    with the same choice. ``device`` is ``"cuda"`` unless the caller asks
-    for ``"cpu"``."""
-    dev = _resolve_device(device)
-    if values.dtype == np.uint32:
-        exp, group = F32_TPU_EXP, 8
-        cands = (F32_TPU_CANDIDATES_FAST if optimize == "fast"
-                 else F32_TPU_CANDIDATES)
-        encode, encode_adaptive = fp_torch.encode_f32, fp_torch.encode_f32_adaptive
-    elif values.dtype == np.uint64:
-        exp, group = F64_DEFAULT_EXP, 2
-        cands = (F64_TPU_CANDIDATES_FAST if optimize == "fast"
-                 else F64_TPU_CANDIDATES)
-        encode, encode_adaptive = fp64_torch.encode_f64, fp64_torch.encode_f64_adaptive
+    library; without it, f32 chunks are packed on the device and f64
+    chunks are host-coded, as in ``trico_tpu``).
+
+    Its spans: ``fp_device_encode`` (the shards' encode, with its copies
+    ``fp_h2d`` and ``fp_d2h``), ``fp_gather``, then for each plane
+    ``fp_assembly``, ``fp_tails`` and ``fp_frame``."""
+    mesh = _resolve_device(device)
+    if planes.dtype == np.uint32:
+        bits, exp, group = 32, F32_TPU_EXP, 8
+        cands = F32_TPU_CANDIDATES_FAST if optimize == "fast" else F32_TPU_CANDIDATES
+    elif planes.dtype == np.uint64:
+        bits, exp, group = 64, F64_DEFAULT_EXP, 2
+        cands = F64_TPU_CANDIDATES_FAST if optimize == "fast" else F64_TPU_CANDIDATES
     else:
-        raise TypeError(values.dtype)
+        raise TypeError(planes.dtype)
     if layout not in ("tpu", "ref"):
         raise ValueError(f"unknown layout {layout!r}")
     if e1 is None:
         e1, e2 = exp
     chunk_len = (chunk_len // group) * group or group
-    n = len(values)
-    flags = (_FLAG_TPU_LAYOUT if layout == "tpu" else 0) | (_FLAG_F64 if group == 2 else 0)
-    if group == 2 and layout == "ref" and (optimize or not native.available()):
+    p, n = planes.shape
+    flags = (_FLAG_TPU_LAYOUT if layout == "tpu" else 0) | (_FLAG_F64 if bits == 64 else 0)
+
+    def host(vals) -> bytes:
+        return _host_fp_encode_best(vals, cands) if optimize else _host_fp_encode(vals, e1, e2)
+
+    if bits == 64 and layout == "ref" and (optimize or not native.available()):
         # trico_tpu/chunked.py:356-369: adaptive f64 reference-layout chunks
         # are a host best-of, and without the host library that packs them
         # f64 reference-layout chunks are host-coded
-        pieces = [values[i : i + chunk_len] for i in range(0, n, chunk_len)]
-        body = [_host_fp_encode_best(p, cands) if optimize
-                else _host_fp_encode(p, e1, e2) for p in pieces]
-        return _frame(flags, chunk_len, n, [len(p) for p in body], body)
-    if optimize:
-        mat, sizes, tail = encode_adaptive(values, chunk_len, cands,
-                                           layout=layout, device=dev)
-    else:
-        mat, sizes, tail = encode(values, chunk_len, e1, e2, layout=layout,
-                                  device=dev)
-    chunk_sizes, body = _rows_body(mat, sizes)
-    if len(tail):
-        tp = (_host_fp_encode_best(tail, cands) if optimize
-              else _host_fp_encode(tail, e1, e2))
-        chunk_sizes.append(len(tp))
-        body.append(tp)
-    return _frame(flags, chunk_len, n, chunk_sizes, body)
+        out = []
+        for plane in planes:
+            body = [host(plane[i : i + chunk_len]) for i in range(0, n, chunk_len)]
+            out.append(_frame(flags, chunk_len, n, [len(b) for b in body], body))
+        return out
+    C = n // chunk_len
+    if C:
+        full = planes[:, : C * chunk_len].reshape(p, C, chunk_len)
+        with profiling.span("fp_device_encode", nbytes=full.nbytes):
+            payloads, sizes = _encode_rows(full, e1, e2, layout,
+                                           cands if optimize else None, mesh)
+        with profiling.span("fp_gather", nbytes=full.nbytes):
+            payloads = shards.gather_to_host(payloads, C, mesh)
+    out = []
+    for i in range(p):
+        with profiling.span("fp_assembly", nbytes=int(sizes[i].sum()) if C else 0):
+            chunk_sizes, body = _rows_body(payloads[i], sizes[i]) if C else ([], [])
+        tail = planes[i, C * chunk_len :]
+        if len(tail):
+            with profiling.span("fp_tails", nbytes=tail.nbytes):
+                tp = host(tail)
+            chunk_sizes.append(len(tp))
+            body.append(tp)
+        with profiling.span("fp_frame", nbytes=sum(len(b) for b in body)):
+            out.append(_frame(flags, chunk_len, n, chunk_sizes, body))
+    return out
+
+
+def encode_chunked(values: np.ndarray, chunk_len: int = DEFAULT_CHUNK_LEN,
+                   e1: int | None = None, e2: int | None = None,
+                   layout: str = "tpu", optimize: bool | str = False, *,
+                   device="cuda") -> bytes:
+    """Encode a uint32 (f32) or uint64 (f64) raw-bits stream into a v1
+    chunked FP container: :func:`encode_fp_planes` of one plane. ``device``
+    is ``"cuda"`` unless the caller asks for ``"cpu"`` or gives a mesh."""
+    return encode_fp_planes(values[None], chunk_len, e1, e2, layout, optimize,
+                            device=device)[0]
 
 
 def decode_chunked(data, *, device="cuda") -> tuple[np.ndarray, int]:
-    """Decode a v1 FP chunked container, either chunk layout → (uint32 or
-    uint64 array, bits). Full chunks decode on ``device``, grouped by their
-    hash_info byte; chunks whose tables exceed ``DEVICE_TABLE_WORDS`` and
-    the tail chunk decode on the host, and so do f64 reference-layout chunks
-    when the host library that parses them is missing
-    (trico_tpu/chunked.py:708-710); f32 reference-layout chunks are then
-    parsed on the device (``fp_torch.parse_f32_chunks``)."""
-    dev = _resolve_device(device)
-    data = bytes(data)
+    """Decode a v1 FP chunked container (bytes or a memoryview, read in
+    place), either chunk layout → (uint32 or uint64 array, bits).
+
+    The host parses and validates the framing before anything is launched.
+    The full chunks are grouped by their hash_info byte and each group is
+    split over the shards of ``device`` (a device or a
+    :class:`~.shards.Mesh`). Groups whose tables pass
+    ``DEVICE_TABLE_WORDS`` (f32 (14,18), f64 (20,20) winners) decode on the
+    host, and so does the tail chunk, whose count must be what ``total``
+    leaves; so do f64 reference-layout chunks when the host library that
+    parses them is missing (trico_tpu/chunked.py:708-710).
+
+    The tally counts the full chunks of each exponent pair and route as
+    ``fp_chunks.<e1>_<e2>.<host|device>`` (calls: chunks, bytes: their
+    decoded words' bytes), and the full chunks' words of any route under
+    ``fp_read_words``; the host route is the span ``fp_host_chunks``."""
+    mesh = _resolve_device(device)
     hdr, sizes, off = parse_validated_framing(data)
     if hdr.kind != "fp":
         raise ValueError(f"{hdr.kind} container passed to decode_chunked "
                          "(FP containers only)")
     bits, layout = hdr.bits, hdr.layout
-    if bits == 32:
-        dtype, B_of, decode = np.uint32, fp_torch.f32_max_chunk_bytes, fp_torch.decode_f32
-    else:
-        dtype, B_of, decode = np.uint64, fp64_torch.f64_max_chunk_bytes, fp64_torch.decode_f64
     chunk_len, total, n_chunks = hdr.chunk_len, hdr.total, hdr.n_chunks
-    if n_chunks == 0:
-        return np.zeros(0, dtype), bits
-    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64) + off
-    n_full = n_chunks - 1 if total % chunk_len or total == 0 else n_chunks
+    out = np.empty(total, np.uint32 if bits == 32 else np.uint64)
+    n_full = total // chunk_len
     if bits == 64 and layout == "ref" and not native.available():
         n_full = 0
-    out = np.empty(total, dtype)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64) + off
     buf = np.frombuffer(data, np.uint8)
-    if n_full > 0:
+    if n_full:
         full_sizes = np.asarray(sizes[:n_full], np.int64)
         mat = bytes_to_rows(buf[offsets[0] : offsets[n_full]], full_sizes,
-                            B_of(chunk_len))
+                            _fp_max_bytes(bits, chunk_len))
         rows = out[: n_full * chunk_len].reshape(n_full, chunk_len)
+        profiling.count("fp_read_words", nbytes=rows.nbytes)
         for info in np.unique(mat[:, 0]):
             idx = np.nonzero(mat[:, 0] == info)[0]
             e1, e2 = fp_torch.exponents(int(info))
+            words = len(idx) * chunk_len * out.itemsize
             if (1 << e1) + (1 << e2) > DEVICE_TABLE_WORDS:
-                rows[idx] = host_decode_full_chunks(mat, sizes, idx,
-                                                    chunk_len, bits, layout)
+                profiling.count(f"fp_chunks.{e1}_{e2}.host", words, len(idx))
+                with profiling.span("fp_host_chunks", nbytes=words):
+                    rows[idx] = host_decode_full_chunks(mat, full_sizes, idx,
+                                                        chunk_len, bits, layout)
             else:
-                rows[idx] = decode(mat[idx], chunk_len, e1, e2, layout=layout,
-                                   device=dev).reshape(len(idx), chunk_len)
+                profiling.count(f"fp_chunks.{e1}_{e2}.device", words, len(idx))
+                rows[idx] = _decode_rows(mat[idx][None], chunk_len, e1, e2,
+                                         bits, layout, mesh)[0]
     for c in range(n_full, n_chunks):
+        # host-coded in the reference layout: the tail chunk, or every chunk
         vals = _host_fp_decode(buf[offsets[c] : offsets[c + 1]], bits)
-        out[c * chunk_len : c * chunk_len + len(vals)] = vals
+        start = c * chunk_len
+        if len(vals) != min(chunk_len, total - start):
+            raise ValueError("corrupt chunked container: a host-coded chunk "
+                             "does not hold the count the total leaves it")
+        out[start : start + len(vals)] = vals
     return out, bits
 
 
@@ -404,12 +530,12 @@ def encode_bp_chunked(values: np.ndarray, chunk_len: int = DEFAULT_BP_CHUNK,
     """BP container of a flat uint32 or uint64 stream: bit-plane-packed
     zigzag deltas in independent chunks (format: :mod:`.codec.bp_ref`).
     ``chunk_len`` is capped at 8192 for u64 and rounded down to a multiple
-    of 32. The full chunks are encoded on ``device``, the tail
-    chunk on the host; a stream with no full chunk is host-coded, as in
-    ``trico_tpu``. The rows and sizes come back into the page-locked slots
+    of 32. The full chunks are encoded on ``device`` (a mesh's first
+    shard), the tail chunk on the host; a stream with no full chunk is
+    host-coded, as in ``trico_tpu``. The rows and sizes come back into the page-locked slots
     ``bp_rows`` and ``bp_sizes`` of :mod:`.staging`; ``_rows_body`` copies
     them out before this returns."""
-    dev = _resolve_device(device)
+    dev = _resolve_device(device).shards[0]
     values = np.ascontiguousarray(values)
     eb = values.dtype.itemsize
     if eb not in (4, 8):
@@ -490,40 +616,44 @@ def _host_bp_decode_all(buf, hdr, sizes, off) -> np.ndarray:
 
 
 def decode_bp_chunked(data, *, device="cuda") -> np.ndarray:
-    """Decode a BP container → flat uint32 or uint64 array. The full chunks
-    decode on ``device`` after their width headers are validated; the tail
-    on the host. Containers the device path cannot take (no full chunk, a
-    chunk length off the 32-value grid, u64 chunks past 8192) decode on the
-    host, as in ``trico_tpu``."""
-    dev = _resolve_device(device)
-    data = bytes(data)
+    """Decode a BP container (bytes or a memoryview, read in place) → flat
+    uint32 or uint64 array.
+
+    The host parses the framing and validates every full chunk's width
+    header before anything is launched; each shard of ``device`` (a device
+    or a :class:`~.shards.Mesh`) decodes its range of the full chunks, the
+    host the tail. Containers the device path cannot take (no full chunk,
+    a chunk length off the 32-value grid, u64 chunks past 8192) decode on
+    the host, as in ``trico_tpu``."""
+    mesh = _resolve_device(device)
     hdr, sizes, off = parse_validated_framing(data)
     if hdr.kind != "bp":
         raise ValueError("not a BP32 container")
     chunk_len, total, n_chunks = hdr.chunk_len, hdr.total, hdr.n_chunks
     eb = hdr.bits // 8
-    n_full = n_chunks - 1 if total % chunk_len else n_chunks
+    n_full = total // chunk_len
     buf = np.frombuffer(data, np.uint8)
-    if (total == 0 or n_full == 0 or chunk_len % 32
+    if (n_full == 0 or chunk_len % 32
             or (eb == 8 and chunk_len > bp_torch.BP64_MAX_CHUNK)):
         return _host_bp_decode_all(buf, hdr, sizes, off)
     offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64) + off
     full_sizes = np.asarray(sizes[:n_full], np.int64)
     if eb == 4:
-        B, dec, to_numpy = (bp_torch.bp32_max_chunk_bytes(chunk_len),
-                            bp_torch.decode_bp32_chunks, _u32.to_numpy)
+        B, dec, dtype = (bp_torch.bp32_max_chunk_bytes(chunk_len),
+                         bp_torch.decode_bp32_chunks, np.uint32)
     else:
-        B, dec, to_numpy = (bp_torch.bp64_max_chunk_bytes(chunk_len),
-                            bp_torch.decode_bp64_chunks, _u64.to_numpy)
+        B, dec, dtype = (bp_torch.bp64_max_chunk_bytes(chunk_len),
+                         bp_torch.decode_bp64_chunks, np.uint64)
     mat = bytes_to_rows(buf[offsets[0] : offsets[n_full]], full_sizes, B)
     validate_bp_chunk_headers(mat, full_sizes, chunk_len, eb * 8)
-    out = np.empty(total, np.uint32 if eb == 4 else np.uint64)
-    out[: n_full * chunk_len] = to_numpy(
-        dec(torch.from_numpy(mat).to(dev), chunk_len)).reshape(-1)
+    out = np.empty(total, dtype)
+    (vals,) = shards.local_chunks(lambda x: (dec(x, chunk_len),), mat[None], mesh,
+                                  [((chunk_len,), dtype)], ("bp_read_h2d", "bp_read_d2h"))
+    out[: n_full * chunk_len] = shards.gather_to_host(vals, n_full, mesh).reshape(-1)
     for c in range(n_full, n_chunks):
-        count = min(chunk_len, total - c * chunk_len)
-        out[c * chunk_len : c * chunk_len + count] = _bp_host_decode(
-            buf[offsets[c] : offsets[c + 1]], count, eb)
+        count = total - c * chunk_len
+        out[c * chunk_len :] = _bp_host_decode(buf[offsets[c] : offsets[c + 1]],
+                                               count, eb)
     return out
 
 
@@ -538,7 +668,6 @@ def encode_fill(value: int, total: int) -> bytes:
 
 
 def decode_fill(data) -> np.ndarray:
-    data = bytes(data)
     hdr, sizes, off = parse_validated_framing(data)
     if hdr.kind != "fill":
         raise ValueError("not a fill container")
@@ -563,10 +692,11 @@ def encode_lz4_chunked(plane: np.ndarray, block_len: int = DEFAULT_LZ4_BLOCK,
                        *, device="cuda") -> bytes:
     """Chunked-LZ4 container of a byte plane: independent LZ4 blocks of
     ``block_len`` bytes. With the C++ host library and at least one full
-    block, the match search of the full blocks runs on ``device`` and the
-    host emits them (:func:`.codec.lz4_torch.compress_plane`); otherwise the
-    host codec compresses every block, as in ``trico_tpu``."""
-    dev = _resolve_device(device)
+    block, the match search of the full blocks runs on ``device`` (a
+    mesh's first shard) and the host emits them
+    (:func:`.codec.lz4_torch.compress_plane`); otherwise the host codec
+    compresses every block, as in ``trico_tpu``."""
+    dev = _resolve_device(device).shards[0]
     plane = np.ascontiguousarray(plane, dtype=np.uint8).reshape(-1)
     n = len(plane)
     if native.available() and n >= block_len:
@@ -579,8 +709,8 @@ def encode_lz4_chunked(plane: np.ndarray, block_len: int = DEFAULT_LZ4_BLOCK,
 def decode_lz4_chunked(data) -> np.ndarray:
     """Decode a chunked-LZ4 (or fill) container → the byte plane, on the
     host: independent blocks across the native library's threads, or the
-    pure-Python decoder block by block."""
-    data = bytes(data)
+    pure-Python decoder block by block. ``data`` (bytes or a memoryview)
+    is read in place."""
     hdr, sizes, off = parse_validated_framing(data)
     if hdr.kind == "fill":
         return decode_fill(data)

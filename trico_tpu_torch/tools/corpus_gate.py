@@ -40,9 +40,9 @@ from pathlib import Path
 
 import numpy as np
 
-from .. import chunked
 from ..archive import ArchiveReader, ArchiveWriter, StreamType
 from ..bench import _sync, card
+from ..shards import torch_device
 from . import ref_oracle
 from .corpus import build_corpus
 
@@ -136,7 +136,7 @@ def gate_class(name: str, mesh: dict, recorded: dict, device) -> tuple[dict, lis
 def run(meshes: dict, recorded: dict, device="cuda") -> dict:
     """The gate over ``meshes`` (name -> mesh) against the live reference
     or the ``recorded`` table (name -> row): the result object."""
-    dev = chunked._resolve_device(device)
+    dev = torch_device(device)
     rows, fails = {}, []
     for name, mesh in meshes.items():
         rows[name], f = gate_class(name, mesh, recorded, dev)

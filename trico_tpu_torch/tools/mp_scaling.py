@@ -63,11 +63,11 @@ from pathlib import Path
 import numpy as np
 import torch.distributed as dist
 
-from .. import chunked
 from ..bench import _sync, card
 from ..codec import fp_cuda
 from ..parallel import mesh_codec
 from ..profiling import StageTimer
+from ..shards import torch_device
 
 REPO = Path(__file__).resolve().parents[2]
 N_VERTS = 1_200_000
@@ -87,7 +87,7 @@ def worker(rank: int, nproc: int, port: int, out: Path, *, shards: int,
     """One rank: the warm-up and the two timed runs; writes its record to
     ``out / f"rank{rank}.json"`` and, on rank 0, the archive to
     ``out / "archive.trc"``."""
-    dev = chunked._resolve_device(device)
+    dev = torch_device(device)
     if nproc > 1:
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                                 world_size=nproc, rank=rank,
@@ -201,7 +201,7 @@ def run(*, procs=(1, 2, 4), shards: int = 8, n_verts: int = N_VERTS,
         device: str = "cuda") -> dict:
     """Every configuration of ``procs``, then the decode check: the result
     object."""
-    dev = chunked._resolve_device(device)
+    dev = torch_device(device)
     if procs[0] != 1:
         raise ValueError(f"the first process count is the base and must be 1, "
                          f"not {procs[0]}")
